@@ -1,8 +1,8 @@
 """The port runs where there is no JAX: in a fresh interpreter whose import
 system refuses jax, jaxlib, flax, optax and unitree_rl_gym_tpu (the GPU
-machine's situation), every module of unitree_rl_gym_tpu_torch and
-chip_smoke import, and the go2 env builds on the CPU at N=4 and steps
-once."""
+machine's situation), every module of unitree_rl_gym_tpu_torch (the PPO
+runner and the terrain included) and chip_smoke import, the go2 env builds
+on the CPU at N=4 and steps once, and its PPO runner builds and acts."""
 
 import os
 import subprocess
@@ -41,6 +41,8 @@ SCRIPT = textwrap.dedent(
     state, obs = env.reset_all()
     state, obs, _, rew, done, _ = env.step(state, torch.zeros(4, 12))
     assert tuple(obs.shape) == (4, 48) and bool(torch.isfinite(obs).all())
+    runner, _ = task_registry.make_alg_runner(env, name="go2", log_root=None)
+    assert tuple(runner.get_inference_policy()(obs).shape) == (4, 12)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
     assert not leaked, leaked
     print("imported", len(names), "modules")

@@ -1,12 +1,14 @@
-"""Kernel K1's per-env body (csrc/control_step.cuh, the code the CUDA
-kernel runs per thread) compiled for the host with g++ -O1 into pytest's
-tmp dir and held against the port's plain version at N=8, grounded and
-airborne, at the physics tolerance of tests/test_torch_physics.py. This
-catches kernel math errors on machines without a GPU; it is never a
-runtime path.
+"""The per-env body of kernels K1 and K3 (csrc/control_step.cuh, the code
+the CUDA kernels run per thread) compiled for the host with g++ -O1 into
+pytest's tmp dir and held against the port's plain version at N=8, at the
+physics tolerance of tests/test_torch_physics.py: K1 (``HAS_GH=false``)
+grounded and airborne on the plane, K3 (``HAS_GH=true``) standing on the
+tiny heightfield of tests/test_pallas_terrain.py, its end-of-step point xy
+(``p_xy``) included. This catches kernel math errors on machines without a
+GPU; it is never a runtime path.
 
-The ``cuda``-marked test holds the real kernel against the plain version
-on the card at N=64 (skips without a GPU)."""
+The ``cuda``-marked tests hold the real kernels against the plain version
+on the card at N=64 (skip without a GPU)."""
 
 import ctypes
 import os
@@ -26,6 +28,21 @@ from unitree_rl_gym_tpu_torch.physics import engine as eng
 N = 8
 STATE_FIELDS = ("base_pos", "base_quat", "joint_q", "v")
 AUX_KEYS = ("torques", "cf_rb", "rb_pos_w", "rb_vel_w")
+# outputs held to the state's tolerance (p_xy: K3's end-of-step point xy)
+POSITION_KEYS = STATE_FIELDS + ("p_xy",)
+
+
+def tiny_terrain(cfg):
+    """The tiny heightfield of tests/test_pallas_terrain.py: 2 x 2
+    sub-terrains of 4 m with a 2 m border, terrain curriculum on."""
+    cfg.terrain.mesh_type = "heightfield"
+    cfg.terrain.num_rows = 2
+    cfg.terrain.num_cols = 2
+    cfg.terrain.terrain_length = 4.0
+    cfg.terrain.terrain_width = 4.0
+    cfg.terrain.border_size = 2.0
+    cfg.terrain.curriculum = True
+    return cfg
 
 
 def make_inputs(default_dof_pos, n, grounded, seed):
@@ -44,6 +61,21 @@ def make_inputs(default_dof_pos, n, grounded, seed):
     )
 
 
+def terrain_inputs(env, n, seed):
+    """``make_inputs`` on the terrain env's heightfield: bases over the
+    sub-terrain origins with the feet near the ground, and ``gh`` [ncp, n]
+    the heights under the default-pose points."""
+    x = make_inputs(env.default_dof_pos.numpy(), n, True, seed)
+    rng = np.random.default_rng(seed)
+    origins = env.terrain_origins.reshape(-1, 3).numpy()
+    base = origins[np.arange(n) % origins.shape[0]]
+    base = base + np.stack([rng.uniform(-0.4, 0.4, n), rng.uniform(-0.4, 0.4, n),
+                            np.full(n, 0.30)], 1)
+    x["base_pos"] = base.astype(np.float32)
+    x["gh"] = env._reset_gh(torch.from_numpy(x["base_pos"])).numpy()
+    return x
+
+
 def _step(fn, env, x, device):
     t = {k: torch.from_numpy(v).to(device) for k, v in x.items()}
     cfg = env.cfg
@@ -51,6 +83,7 @@ def _step(fn, env, x, device):
         env.robot.dyn, env.cparams, env.pd, cfg.sim.dt, cfg.control.decimation,
         eng.PhysicsState(**{k: t[k] for k in STATE_FIELDS}), t["target"],
         t["friction"], t["mass_scale"], env.m_eff_n, env.m_eff_t,
+        gh=t.get("gh"),
     )
     out = {k: getattr(s, k) for k in STATE_FIELDS}
     out.update(aux)
@@ -63,14 +96,14 @@ def plain_step(env, x, device="cpu"):
 
 
 def env_step(env, x, device="cpu"):
-    """What ``LeggedEnv.step`` runs (``backend.control_step``): K1 on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    """What ``LeggedEnv.step`` runs (``backend.control_step``): K1 (or K3
+    with ``gh``) on a CUDA tensor, the plain version on a CPU tensor."""
     return _step(pb.control_step, env, x, device)
 
 
 def assert_close(ref, got, keys):
     for k in keys:
-        if k in STATE_FIELDS:
+        if k in POSITION_KEYS:
             np.testing.assert_allclose(got[k], ref[k], atol=5e-5, rtol=1e-4,
                                        err_msg=k)
         else:
@@ -103,23 +136,31 @@ def build_host_lib(m, out_dir):
     lib.utrl_control_step_host.restype = ctypes.c_int
     lib.utrl_control_step_host.argtypes = (
         [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15)
+    lib.utrl_control_step_terrain_host.restype = ctypes.c_int
+    lib.utrl_control_step_terrain_host.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 17)
     return lib
 
 
 def host_step(lib, m, tables, x):
-    """One control step of every env of ``x`` through the host build."""
+    """One control step of every env of ``x`` through the host build: K1's
+    body, or K3's when ``x`` holds ``gh``."""
     assert lib.utrl_model_bytes() == len(tables)
     blob = ctypes.create_string_buffer(tables)
     n = x["joint_q"].shape[0]
+    terrain = "gh" in x
     ins = [np.ascontiguousarray(x[k]) for k in
-           STATE_FIELDS + ("target", "friction", "mass_scale")]
+           STATE_FIELDS + ("target", "friction", "mass_scale")
+           + (("gh",) if terrain else ())]
     shapes = dict(base_pos=(n, 3), base_quat=(n, 4), joint_q=(n, m.nj),
                   v=(n, m.nv), torques=(n, m.nj), cf_rb=(n, m.nrb, 3),
                   rb_pos_w=(n, m.nrb, 3), rb_vel_w=(n, m.nrb, 3))
+    if terrain:
+        shapes["p_xy"] = (2 * m.ncp, n)
     outs = {k: np.zeros(s, np.float32) for k, s in shapes.items()}
-    rc = lib.utrl_control_step_host(
-        ctypes.addressof(blob), n,
-        *(a.ctypes.data for a in ins), *(a.ctypes.data for a in outs.values()))
+    fn = lib.utrl_control_step_terrain_host if terrain else lib.utrl_control_step_host
+    rc = fn(ctypes.addressof(blob), n,
+            *(a.ctypes.data for a in ins), *(a.ctypes.data for a in outs.values()))
     assert rc == 0
     return outs
 
@@ -162,6 +203,28 @@ def test_host_body_matches_plain(host_vs_plain, grounded, output):
         assert float(np.abs(got["cf_rb"]).max()) > 1.0
 
 
+@pytest.fixture(scope="module")
+def terrain_env():
+    cfg = tiny_terrain(go2_rough_cfg())
+    cfg.env.num_envs = N
+    return LeggedEnv(cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def host_vs_plain_terrain(terrain_env, host_lib):
+    """(plain outputs, K3 host-body outputs) on the same terrain inputs."""
+    x = terrain_inputs(terrain_env, N, seed=4)
+    return plain_step(terrain_env, x), host_step(host_lib, *env_tables(terrain_env), x)
+
+
+@pytest.mark.parametrize("output", POSITION_KEYS + AUX_KEYS)
+def test_terrain_host_body_matches_plain(host_vs_plain_terrain, output):
+    ref, got = host_vs_plain_terrain
+    assert_close(ref, got, [output])
+    if output == "cf_rb":
+        assert float(np.abs(got["cf_rb"]).max()) > 1.0
+
+
 def test_kernel_wrapper_rejects_cpu_tensors(env):
     """K1's wrapper launches on CUDA tensors only; the choice of the plain
     version for a CPU tensor is ``backend.control_step``'s."""
@@ -196,6 +259,34 @@ def test_cuda_kernel_matches_plain(env, cuda_device, grounded):
     torch.cuda.synchronize()
     assert cuda_step.LAUNCHES == before + 1
     assert_close(ref, got, STATE_FIELDS + AUX_KEYS)
+
+
+def test_terrain_kernel_wrapper_rejects_cpu_tensors(terrain_env):
+    """K3's wrapper, like K1's, launches on CUDA tensors only."""
+    env = terrain_env
+    x = terrain_inputs(env, N, seed=7)
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    cfg = env.cfg
+    before = cuda_step.LAUNCHES_TERRAIN
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_step.control_step_terrain(
+            pb.soa_model_for(env.robot.dyn), env.cparams, env.pd, cfg.sim.dt,
+            cfg.control.decimation,
+            eng.PhysicsState(**{k: t[k] for k in STATE_FIELDS}), t["target"],
+            t["friction"], t["mass_scale"], env.m_eff_n, env.m_eff_t, t["gh"],
+        )
+    assert cuda_step.LAUNCHES_TERRAIN == before
+
+
+@pytest.mark.cuda
+def test_cuda_terrain_kernel_matches_plain(terrain_env, cuda_device):
+    x = terrain_inputs(terrain_env, 64, seed=5)
+    ref = plain_step(terrain_env, x, cuda_device)
+    before = cuda_step.LAUNCHES_TERRAIN
+    got = env_step(terrain_env, x, cuda_device)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES_TERRAIN == before + 1
+    assert_close(ref, got, POSITION_KEYS + AUX_KEYS)
 
 
 @pytest.mark.cuda

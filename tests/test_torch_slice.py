@@ -66,8 +66,13 @@ def test_unported_features_raise(knob):
     cfg, _ = task_registry.get_cfgs("go2")
     cfg.env.num_envs = 2
     if knob == "heightfield":
+        # heightfield terrain is ported now: the env builds its terrain
+        # (the knobs below still raise)
         cfg.terrain.mesh_type = "heightfield"
-    elif knob == "contact_stiffness":
+        env = task_registry.get_task_class("go2")(cfg, device="cpu")
+        assert env.terrain is not None and env.grid.heights.shape == (1300, 2100)
+        return
+    if knob == "contact_stiffness":
         cfg.domain_rand.randomize_contact_stiffness = True
     elif knob == "pd_gain":
         cfg.domain_rand.randomize_pd_gain = True

@@ -1,9 +1,17 @@
-// Kernel K1: the decimated physics control step on flat ground, one thread
-// per env, for Hopper (nvcc -gencode arch=compute_90a,code=sm_90a).
+// Kernels K1 and K3: the decimated physics control step on flat ground (K1)
+// and on heightfield terrain (K3), one thread per env, for Hopper
+// (nvcc -gencode arch=compute_90a,code=sm_90a).
 //
-// Replaces the JAX package's Pallas TPU kernel, flat variant:
+// Replace the JAX package's Pallas TPU kernel
 // unitree_rl_gym_tpu/physics/pallas_step.py::_kernel as launched by
-// control_step_pallas with has_gh=False, has_cs=False.
+// control_step_pallas: K1 its flat variant (has_gh=False, has_cs=False), K3
+// its terrain variant (has_gh=True, has_cs=False). Both are instances of one
+// template (control_step.cuh, HAS_GH). K3 adds per env 68 ground heights
+// read (272 bytes for go2) and 136 point coordinates written (544 bytes),
+// both in the JAX package's [points, envs] row layout, so a warp's 32
+// envs read and write 128 contiguous bytes per point; its arithmetic is
+// K1's plus the point xy of the settled state, and it is bound by
+// operations as K1 is (physics/cuda_step.py::flops_per_env, bytes_per_env).
 //
 // What bounds it on this card: arithmetic and latency, not bytes. Per env
 // and control step it reads about 200 bytes of state and writes about
@@ -12,14 +20,14 @@
 // FK, RNEA, CRBA, an 18x18 Cholesky and 8 PGS sweeps over 68 points; the
 // exact count is physics/cuda_step.py::flops_per_env), ~1.14 GFLOP at 4096
 // envs: ~17 us at 67 TFLOP/s fp32. The operation bound is the larger.
-// The design is far from either (on an H100 80GB HBM3 at 700 W: 1.24 ms per
-// launch at 4096 go2 envs, 73x the bound, measured by chip_smoke.py): one
-// thread per env puts ~1 warp on each of the 132 SMs at 4096 envs, every
-// dependent FMA waits out its latency, and the per-thread working set (H,
-// its factor, PGS impulses of every point; ptxas: 255 registers and a
-// 7.5 KB stack frame) lives in local memory, served from L1/L2. What the
-// design does
-// about that for now: small blocks (32 threads) so the 4096 envs spread
+// The design is far from either (on an H100 80GB HBM3 at 700 W, measured by
+// chip_smoke.py at 4096 go2 envs: K1 1.24-1.29 ms per launch, ~75x the
+// bound; K3 1.44 ms, ~85x): one thread per env puts ~1 warp on each of the
+// 132 SMs at 4096 envs, every dependent multiply-add waits out its latency,
+// and the per-thread working set (H, its factor, PGS impulses of every
+// point; ptxas: 255 registers and a 7.5-7.7 KB stack frame) lives in local
+// memory, served from L1/L2. What the design does about that for now:
+// small blocks (32 threads) so the 4096 envs spread
 // over all SMs instead of queueing on a few, model tables read with
 // warp-uniform indices (broadcast loads), and no global traffic beyond one
 // read of each input and one write of each output. Spreading the points
@@ -32,28 +40,34 @@
 
 #include "control_step.cuh"
 
+template <bool HAS_GH>
 __global__ void __launch_bounds__(32) utrl_control_step_kernel(
     const ModelTables* __restrict__ M, int n_envs,
     const float* __restrict__ bp, const float* __restrict__ bq,
     const float* __restrict__ q, const float* __restrict__ v,
     const float* __restrict__ target, const float* __restrict__ friction,
-    const float* __restrict__ mass_scale,
+    const float* __restrict__ mass_scale, const float* __restrict__ gh,
     float* __restrict__ bp_out, float* __restrict__ bq_out,
     float* __restrict__ q_out, float* __restrict__ v_out,
     float* __restrict__ tau_out, float* __restrict__ cf_out,
-    float* __restrict__ rbp_out, float* __restrict__ rbv_out) {
+    float* __restrict__ rbp_out, float* __restrict__ rbv_out,
+    float* __restrict__ pxy_out) {
     const int n = blockIdx.x * blockDim.x + threadIdx.x;
     if (n >= n_envs) return;
-    utrl_control_step_env(*M, n, bp, bq, q, v, target, friction, mass_scale,
-                          bp_out, bq_out, q_out, v_out, tau_out, cf_out,
-                          rbp_out, rbv_out);
+    utrl_control_step_env<HAS_GH>(*M, n, n_envs, bp, bq, q, v, target,
+                                  friction, mass_scale, gh, bp_out, bq_out,
+                                  q_out, v_out, tau_out, cf_out, rbp_out,
+                                  rbv_out, pxy_out);
 }
+
+static const int kThreads = 32;
 
 extern "C" long long utrl_model_bytes(void) {
     return (long long)sizeof(ModelTables);
 }
 
-// Launches on `stream` and returns cudaGetLastError(); synchronizes nothing.
+// K1. Launches on `stream` and returns cudaGetLastError(); synchronizes
+// nothing.
 extern "C" int utrl_control_step(
     const void* model, int n_envs,
     const float* bp, const float* bq, const float* q, const float* v,
@@ -61,11 +75,30 @@ extern "C" int utrl_control_step(
     float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
     float* cf_out, float* rbp_out, float* rbv_out, void* stream) {
     if (n_envs <= 0) return 0;
-    const int threads = 32;
-    const int blocks = (n_envs + threads - 1) / threads;
-    utrl_control_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const ModelTables*)model, n_envs, bp, bq, q, v, target, friction,
-        mass_scale, bp_out, bq_out, q_out, v_out, tau_out, cf_out, rbp_out,
-        rbv_out);
+    const int blocks = (n_envs + kThreads - 1) / kThreads;
+    utrl_control_step_kernel<false>
+        <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            (const ModelTables*)model, n_envs, bp, bq, q, v, target, friction,
+            mass_scale, nullptr, bp_out, bq_out, q_out, v_out, tau_out, cf_out,
+            rbp_out, rbv_out, nullptr);
+    return (int)cudaGetLastError();
+}
+
+// K3: K1's operands plus gh [NCP, n_envs] in and pxy [2*NCP, n_envs] out.
+extern "C" int utrl_control_step_terrain(
+    const void* model, int n_envs,
+    const float* bp, const float* bq, const float* q, const float* v,
+    const float* target, const float* friction, const float* mass_scale,
+    const float* gh,
+    float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
+    float* cf_out, float* rbp_out, float* rbv_out, float* pxy_out,
+    void* stream) {
+    if (n_envs <= 0) return 0;
+    const int blocks = (n_envs + kThreads - 1) / kThreads;
+    utrl_control_step_kernel<true>
+        <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            (const ModelTables*)model, n_envs, bp, bq, q, v, target, friction,
+            mass_scale, gh, bp_out, bq_out, q_out, v_out, tau_out, cf_out,
+            rbp_out, rbv_out, pxy_out);
     return (int)cudaGetLastError();
 }

@@ -1,9 +1,17 @@
-// Per-env body of kernel K1, the decimated physics control step on flat
-// ground: `decimation` x (PD torque + clip, FK, RNEA bias + passive terms,
+// Per-env body of kernels K1 (flat ground) and K3 (terrain), the decimated
+// physics control step: `decimation` x (PD torque + clip, FK, RNEA bias +
+// passive terms,
 // CRBA, Cholesky factor and solve, PGS contact with Baumgarte bias,
 // block-Jacobi scaling and friction cone, velocity caps, semi-implicit
 // integration, joint-limit projection), then FK of the settled state,
 // report-body positions / velocities and report-body contact forces.
+//
+// K3 is the HAS_GH = true instance of the same template: every contact
+// point's ground height gh (read once per control step, frozen across the
+// substeps) enters the penetration depth phi = (radius + gh) - z, and the
+// world xy of every point at the end of the step is written out (p_xy),
+// from which the env computes the next step's gh. K1 is HAS_GH = false:
+// the z = 0 plane, no p_xy.
 //
 // The arithmetic restates unitree_rl_gym_tpu_torch/physics/soa.py (itself
 // the port of the JAX package's physics/soa.py) for ONE env in plain C++:
@@ -27,6 +35,18 @@
 #else
 #define UTRL_HD inline
 #endif
+
+// 1/sqrt(x) as the plain version's torch.rsqrt computes it on each device:
+// CUDA's rsqrtf on the card, a rounded division of a rounded sqrt on the
+// CPU. The contact solve amplifies a last-bit difference in the Cholesky
+// pivots into visible velocity differences, so the two must round alike.
+UTRL_HD float utrl_rsqrt(float x) {
+#ifdef __CUDA_ARCH__
+    return rsqrtf(x);
+#else
+    return 1.0f / sqrtf(x);
+#endif
+}
 
 #if !defined(UTRL_NB) || !defined(UTRL_NCP) || !defined(UTRL_NRB)
 #error "UTRL_NB, UTRL_NCP and UTRL_NRB come from the build (physics/cuda_step.py)"
@@ -376,7 +396,7 @@ UTRL_HD void utrl_chol_factor(float L[][UTRL_NV], float* rinv) {
             float s = L[i][j];
             for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
             if (i == j) {
-                rinv[j] = 1.0f / sqrtf(fmaxf(s, 1e-12f));
+                rinv[j] = utrl_rsqrt(fmaxf(s, 1e-12f));
                 L[j][j] = s * rinv[j];
             } else {
                 L[i][j] = s * rinv[j];
@@ -403,7 +423,8 @@ UTRL_HD void utrl_chol_solve(const ModelTables& M, const float L[][UTRL_NV],
 }
 
 // ---------------------------------------------------------------------------
-// PGS contact on the z = 0 plane
+// PGS contact on the z = 0 plane (HAS_GH = false) or above per-point ground
+// heights gh[c] (HAS_GH = true)
 // ---------------------------------------------------------------------------
 
 struct UtrlContact {
@@ -416,9 +437,11 @@ struct UtrlContact {
     float jacobi[UTRL_NB];    // 1 / #active points on the body
 };
 
+template <bool HAS_GH>
 UTRL_HD void utrl_contact(const ModelTables& M, const UtrlKin& K,
                           const float L[][UTRL_NV], const float* rinv,
-                          float* vv, float fric, UtrlContact& C) {
+                          float* vv, float fric, const float* gh,
+                          UtrlContact& C) {
     const float mu = 0.5f * (M.terrain_friction + fric);
     for (int b = 0; b < UTRL_NB; ++b) {
         float n_active = 0.0f;
@@ -427,7 +450,9 @@ UTRL_HD void utrl_contact(const ModelTables& M, const UtrlKin& K,
             for (int i = 0; i < 3; ++i)
                 C.r_w[c][i] = rc[0] * K.R[b][3 * i] + rc[1] * K.R[b][3 * i + 1]
                             + rc[2] * K.R[b][3 * i + 2];
-            const float phi = M.cp_radius[c] - (K.p[b][2] + C.r_w[c][2]);
+            const float z = K.p[b][2] + C.r_w[c][2];
+            const float phi = HAS_GH ? (M.cp_radius[c] + gh[c]) - z
+                                     : M.cp_radius[c] - z;
             C.active[c] = phi > 0.0f;
             C.v_bias[c] = fminf(M.baumgarte * fmaxf(phi, 0.0f) / M.sim_dt,
                                 M.max_depenetration_velocity);
@@ -485,9 +510,11 @@ UTRL_HD void utrl_contact(const ModelTables& M, const UtrlKin& K,
 // one substep and the whole control step of env n
 // ---------------------------------------------------------------------------
 
+template <bool HAS_GH>
 UTRL_HD void utrl_substep(const ModelTables& M, float* bp, float* bq, float* q,
                           float* v, const float* target, float fric,
-                          float mass_scale, float* tau, UtrlContact& C) {
+                          float mass_scale, const float* gh, float* tau,
+                          UtrlContact& C) {
     UtrlKin K;
     float vb[UTRL_NB][6], bias[UTRL_NV], L[UTRL_NV][UTRL_NV], rinv[UTRL_NV];
     float rhs[UTRL_NV];
@@ -513,7 +540,7 @@ UTRL_HD void utrl_substep(const ModelTables& M, float* bp, float* bq, float* q,
     utrl_chol_solve(M, L, rinv, rhs, vv);
     for (int k = 0; k < UTRL_NV; ++k) vv[k] = v[k] + M.sim_dt * vv[k];
 
-    utrl_contact(M, K, L, rinv, vv, fric, C);
+    utrl_contact<HAS_GH>(M, K, L, rinv, vv, fric, gh, C);
 
     for (int j = 0; j < UTRL_NJ; ++j)
         vv[6 + j] = utrl_clip(vv[6 + j], -M.dof_vel_limit[j], M.dof_vel_limit[j]);
@@ -537,7 +564,7 @@ UTRL_HD void utrl_substep(const ModelTables& M, float* bp, float* bq, float* q,
         const float nz = z + h * (oz * w + (ox * y - oy * x));
         const float nw = w + h * -((ox * x + oy * y) + oz * z);
         const float n2 = (nx * nx + ny * ny) + (nz * nz + nw * nw);
-        const float inv = 1.0f / sqrtf(fmaxf(n2, 1e-18f));
+        const float inv = utrl_rsqrt(fmaxf(n2, 1e-18f));
         bq[0] = nx * inv;
         bq[1] = ny * inv;
         bq[2] = nz * inv;
@@ -555,13 +582,17 @@ UTRL_HD void utrl_substep(const ModelTables& M, float* bp, float* bq, float* q,
     for (int k = 0; k < UTRL_NV; ++k) v[k] = vv[k];
 }
 
-// Row n of every [N, k] operand in, row n of every [N, k] output out.
+// Row n of every [N, k] operand in, row n of every [N, k] output out. With
+// HAS_GH, column n of gh_in [NCP, n_envs] in and of pxy_out [2*NCP, n_envs]
+// out (the JAX package's row layout: coalesced across a warp's envs).
+template <bool HAS_GH>
 UTRL_HD void utrl_control_step_env(
-    const ModelTables& M, int n,
+    const ModelTables& M, int n, int n_envs,
     const float* bp_in, const float* bq_in, const float* q_in, const float* v_in,
     const float* target_in, const float* friction, const float* mass_scale,
+    const float* gh_in,
     float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
-    float* cf_out, float* rbp_out, float* rbv_out) {
+    float* cf_out, float* rbp_out, float* rbv_out, float* pxy_out) {
     float bp[3], bq[4], q[UTRL_NJ], v[UTRL_NV], target[UTRL_NJ], tau[UTRL_NJ];
     for (int i = 0; i < 3; ++i) bp[i] = bp_in[3 * n + i];
     for (int i = 0; i < 4; ++i) bq[i] = bq_in[4 * n + i];
@@ -572,10 +603,13 @@ UTRL_HD void utrl_control_step_env(
     }
     for (int k = 0; k < UTRL_NV; ++k) v[k] = v_in[UTRL_NV * n + k];
     const float fric = friction[n], ms = mass_scale[n];
+    float gh[HAS_GH ? UTRL_NCP : 1] = {0.0f};
+    if (HAS_GH)
+        for (int c = 0; c < UTRL_NCP; ++c) gh[c] = gh_in[c * n_envs + n];
 
     UtrlContact C;
     for (int s = 0; s < M.decimation; ++s)
-        utrl_substep(M, bp, bq, q, v, target, fric, ms, tau, C);
+        utrl_substep<HAS_GH>(M, bp, bq, q, v, target, fric, ms, gh, tau, C);
 
     // settled state: world kinematics, report bodies, contact forces
     UtrlKin K;
@@ -601,6 +635,18 @@ UTRL_HD void utrl_control_step_env(
         cf[0] += C.ptx[c] / M.sim_dt;
         cf[1] += C.pty[c] / M.sim_dt;
         cf[2] += C.pn[c] / M.sim_dt;
+    }
+    if (HAS_GH) {
+        // end-of-step world xy of every point: p_b + R_b cp_pos
+        for (int b = 0; b < UTRL_NB; ++b)
+            for (int c = M.cp_start[b]; c < M.cp_end[b]; ++c) {
+                const float* rc = M.cp_pos[c];
+                for (int i = 0; i < 2; ++i)
+                    pxy_out[(i * UTRL_NCP + c) * n_envs + n] =
+                        K.p[b][i] + (rc[0] * K.R[b][3 * i]
+                                     + rc[1] * K.R[b][3 * i + 1]
+                                     + rc[2] * K.R[b][3 * i + 2]);
+            }
     }
     for (int i = 0; i < 3; ++i) bp_out[3 * n + i] = bp[i];
     for (int i = 0; i < 4; ++i) bq_out[4 * n + i] = bq[i];

@@ -3,19 +3,28 @@
 
 The per-control-step pipeline keeps the JAX package's order (its module
 docstring, after the reference's ``post_physics_step``): clip actions -> PD
-target -> decimated physics (kernel K1 on CUDA, its plain version on CPU)
--> resample commands *before* rewards, heading controller -> termination ->
-feet air time -> rewards -> curricula -> resets *after* rewards -> pushes
-*after* resets -> observations last.
+target -> decimated physics (kernel K1 on flat ground and K3 on terrain on
+CUDA, their plain version on CPU) -> resample commands *before* rewards,
+heading controller -> termination -> feet air time -> rewards -> curricula
+-> resets *after* rewards -> terrain height carry -> pushes *after* resets
+-> observations last.
+
+Terrain (``mesh_type="heightfield"`` or ``"trimesh"``, both a sampled
+heightfield) follows the JAX package's kernel formulation on every device:
+``EnvState.gh`` holds the ground height under every contact point at the
+start of the step (rows [ncp, N]), frozen across the substeps; the control
+step returns the end-of-step point xy, and the next ``gh`` is looked up in
+per-env heightfield windows (``win``, re-centered by
+:meth:`LeggedEnv.refresh_terrain`). Envs reset since the last refresh
+stand on their spawn platform height until the next one.
 
 Randomness comes from one ``torch.Generator`` held by the env on its device
 and seeded from ``cfg.seed`` (``--seed``). It cannot reproduce the JAX
 package's PRNG draws; parity tests start both packages from one state
 (:meth:`EnvState.from_numpy`) with in-step randomness off.
 
-Not in this slice (raise ``NotImplementedError``): terrain
-(``mesh_type="heightfield"``/``"trimesh"``), contact-stiffness DR, PD-gain
-DR and actuation-delay DR.
+Not in this slice (raise ``NotImplementedError``): contact-stiffness DR,
+PD-gain DR and actuation-delay DR.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from unitree_rl_gym_tpu_torch.envs import rewards as R
 from unitree_rl_gym_tpu_torch.models.robot import Robot, build_robot
 from unitree_rl_gym_tpu_torch.physics import backend as pback
 from unitree_rl_gym_tpu_torch.physics import contact as ct
+from unitree_rl_gym_tpu_torch.physics import dynamics as dyn
 from unitree_rl_gym_tpu_torch.physics import engine as eng
 from unitree_rl_gym_tpu_torch.utils import math as tm
 from unitree_rl_gym_tpu_torch.utils.config import LeggedRobotCfg
@@ -59,10 +69,17 @@ class EnvState:
     cmd_vx_range: torch.Tensor      # [2] live lin_vel_x range
     obs: torch.Tensor               # [N, num_obs]
     priv_obs: Optional[torch.Tensor] = None
+    # terrain only (None on the plane): step-start ground height under
+    # every contact point, rows [ncp, N]; per-env heightfield windows
+    # [N, W, W] with their grid corners [N, 2] int32; envs reset since the
+    # last window refresh [N] bool
+    gh: Optional[torch.Tensor] = None
+    win: Optional[torch.Tensor] = None
+    win_corner: Optional[torch.Tensor] = None
+    win_stale: Optional[torch.Tensor] = None
 
     # fields of the JAX EnvState that belong to features not in this slice
-    _UNPORTED = ("gh", "win", "win_corner", "win_stale", "task_state",
-                 "cstiff", "pd_gain", "act_delay")
+    _UNPORTED = ("task_state", "cstiff", "pd_gain", "act_delay")
 
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
@@ -98,10 +115,6 @@ class LeggedEnv:
         self.cfg = cfg
         self.device = resolve_device(device)
         dr = cfg.domain_rand
-        if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
-            raise NotImplementedError(
-                f"terrain (mesh_type={cfg.terrain.mesh_type!r}) is not ported yet"
-            )
         if dr.randomize_contact_stiffness:
             raise NotImplementedError("contact-stiffness DR is not ported yet")
         if dr.randomize_pd_gain:
@@ -177,6 +190,18 @@ class LeggedEnv:
             [osc["lin_vel"], osc["lin_vel"], osc["ang_vel"]], **f32)
         self.base_init_pos = torch.tensor(cfg.init_state.pos, **f32)
         self.base_init_quat = torch.tensor(cfg.init_state.rot, **f32)
+
+        # terrain: the heightfield and spawn origins (numpy, from cfg.seed),
+        # then the grid on the device
+        self.terrain = None
+        if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
+            from unitree_rl_gym_tpu_torch.utils.terrain import Terrain
+
+            self.terrain = Terrain(cfg.terrain, self.num_envs, seed=cfg.seed)
+            self.grid = self.terrain.grid(dev)
+            self.terrain_origins = torch.as_tensor(
+                self.terrain.env_origins, **f32)
+            self.cp_xy0 = self._default_pose_point_xy().to(dev)
 
         # contact-solver preconditioner at the nominal pose (CPU, build time)
         m_eff_n, m_eff_t = ct.point_effective_mass(
@@ -275,9 +300,48 @@ class LeggedEnv:
         cmd[:, :2] *= keep[:, None]
         return cmd
 
+    # ------------------------------------------------------------------
+    # terrain height carry
+    # ------------------------------------------------------------------
+
+    def _default_pose_point_xy(self):
+        """World xy [ncp, 2] of every contact point relative to the base
+        origin at the default pose and init orientation, in the control
+        step's (sorted) point order; computed once on the CPU."""
+        model = self.robot.dyn
+        R_w, p_w, _, v_b = dyn.fk(
+            model, torch.zeros(3), self.base_init_quat.cpu(),
+            self.default_dof_pos.cpu(), torch.zeros(6 + self.robot.num_dof),
+        )
+        x, _ = ct.point_kinematics(model, R_w, p_w, v_b)
+        perm = torch.as_tensor(pback.soa_model_for(model).cp_perm)
+        return x[:, :2][perm]
+
+    def _reset_gh(self, base_pos):
+        """gh rows [ncp, N] under the default-pose points at ``base_pos``
+        (exact lookup; reset_all only)."""
+        return self.grid.height_at(
+            base_pos[:, None, :2] + self.cp_xy0[None]).T.contiguous()
+
+    def refresh_terrain(self, state: EnvState) -> EnvState:
+        """Re-center every env's heightfield window on its base and clear
+        staleness: every step by default (``step(refresh_terrain=True)``),
+        every ``terrain.window_refresh_steps`` steps in the PPO rollout.
+        No-op on the plane."""
+        if self.terrain is None:
+            return state
+        win, corner = self.grid.window_at(
+            state.phys.base_pos[:, :2], W=self.cfg.terrain.window_size)
+        return state.replace(
+            win=win, win_corner=corner,
+            win_stale=torch.zeros((self.num_envs,), dtype=torch.bool,
+                                  device=self.device),
+        )
+
     def _sample_reset(self, n, origins, vx_range=None):
         """Fresh physics state + commands for ``n`` envs
-        (legged_robot.py:557-594, 519-538)."""
+        (legged_robot.py:557-594, 519-538). On terrain the base spawns at
+        its sub-terrain origin with +-1 m of xy jitter."""
         nj = self.robot.num_dof
         dof_pos = self.default_dof_pos * self._rand(n, nj, lo=0.5, hi=1.5)
         base_vel = self._rand(n, 6, lo=-0.5, hi=0.5)
@@ -286,8 +350,12 @@ class LeggedEnv:
         v = torch.cat(
             (base_vel[:, 3:6], base_vel[:, 0:3],
              torch.zeros((n, nj), device=self.device)), dim=1)
+        base_pos = self.base_init_pos.expand(n, 3) + origins
+        if self.terrain is not None:
+            jitter = self._rand(n, 2, lo=-1.0, hi=1.0)
+            base_pos = torch.cat((base_pos[:, :2] + jitter, base_pos[:, 2:]), 1)
         phys = eng.PhysicsState(
-            base_pos=self.base_init_pos.expand(n, 3) + origins,
+            base_pos=base_pos,
             base_quat=self.base_init_quat.expand(n, 4).contiguous(),
             joint_q=dof_pos,
             v=v,
@@ -303,7 +371,23 @@ class LeggedEnv:
         (state, obs) (BaseTask.reset semantics)."""
         N, nj, dev = self.num_envs, self.robot.num_dof, self.device
         dr = self.cfg.domain_rand
-        env_origin = torch.zeros((N, 3), device=dev)
+        tcfg = self.cfg.terrain
+        if self.terrain is not None:
+            # start rows <= max_init_terrain_level under the curriculum,
+            # types striped across the columns
+            max_lvl = (min(tcfg.max_init_terrain_level + 1, tcfg.num_rows)
+                       if tcfg.curriculum else tcfg.num_rows)
+            terrain_level = torch.randint(
+                0, max_lvl, (N,), generator=self.gen, device=dev
+            ).to(torch.int32)
+            terrain_type = (torch.arange(N, device=dev) * tcfg.num_cols
+                            // N).to(torch.int32)
+            env_origin = self.terrain_origins[terrain_level.long(),
+                                              terrain_type.long()]
+        else:
+            terrain_level = torch.zeros((N,), dtype=torch.int32, device=dev)
+            terrain_type = torch.zeros((N,), dtype=torch.int32, device=dev)
+            env_origin = torch.zeros((N, 3), device=dev)
         cmd_vx_range = torch.tensor(
             self.cfg.commands.ranges["lin_vel_x"], dtype=torch.float32, device=dev)
         vx_range = cmd_vx_range if self.cfg.commands.curriculum else None
@@ -343,29 +427,38 @@ class LeggedEnv:
             mass_scale=mass_scale,
             episode_sums=zeros(N, len(self.episode_term_names)),
             env_origin=env_origin,
-            terrain_level=torch.zeros((N,), dtype=torch.int32, device=dev),
-            terrain_type=torch.zeros((N,), dtype=torch.int32, device=dev),
+            terrain_level=terrain_level,
+            terrain_type=terrain_type,
             cmd_vx_range=cmd_vx_range,
             obs=zeros(N, self.num_obs),
             priv_obs=zeros(N, self.num_privileged_obs) if self.num_privileged_obs else None,
+            gh=self._reset_gh(phys.base_pos) if self.terrain is not None else None,
         )
+        state = self.refresh_terrain(state)
         state, obs, *_ = self.step(state, zeros(N, self.num_actions))
         return state, obs
 
-    def step(self, state: EnvState, actions):
+    def step(self, state: EnvState, actions, refresh_terrain: bool = True):
         """One control step for all envs; returns
-        (state, obs, priv_obs, rew, reset_buf, extras)."""
+        (state, obs, priv_obs, rew, reset_buf, extras).
+
+        ``refresh_terrain`` re-centers the heightfield windows first (eval
+        loops); the PPO rollout passes False and refreshes every
+        ``terrain.window_refresh_steps`` steps itself."""
         cfg = self.cfg
         N = self.num_envs
+        if refresh_terrain:
+            state = self.refresh_terrain(state)
         clip_a = cfg.normalization.clip_actions
         actions = torch.clamp(actions, -clip_a, clip_a)
 
-        # ---- physics: K1 on CUDA tensors, the plain version on CPU ----
+        # ---- physics: K1 (plane) or K3 (terrain) on CUDA tensors, the
+        #      plain version on CPU ----
         target = self._compute_target(actions)
         phys, aux = pback.control_step(
             self.robot.dyn, self.cparams, self.pd, cfg.sim.dt,
             cfg.control.decimation, state.phys, target, state.friction,
-            state.mass_scale, self.m_eff_n, self.m_eff_t,
+            state.mass_scale, self.m_eff_n, self.m_eff_t, state.gh,
         )
         episode_length = state.episode_length + 1
         state = state.replace(phys=phys, actions=actions,
@@ -442,6 +535,15 @@ class LeggedEnv:
         # ---- curricula, evaluated at reset time ----
         m = reset_buf
         mb = m[:, None]
+        terrain_level, env_origin = state.terrain_level, state.env_origin
+        if self.terrain is not None and cfg.terrain.curriculum:
+            rand_level = torch.randint(0, cfg.terrain.num_rows, (N,),
+                                       generator=self.gen, device=self.device)
+            terrain_level, env_origin = curricula.terrain_curriculum_at_reset(
+                cfg.terrain, self.terrain_origins, self.max_episode_length_s,
+                rand_level, m, phys.base_pos, commands, terrain_level,
+                state.terrain_type, env_origin,
+            )
         cmd_vx_range = state.cmd_vx_range
         if cfg.commands.curriculum:
             idx = self.reward_names.index("tracking_lin_vel")
@@ -452,7 +554,7 @@ class LeggedEnv:
 
         # ---- fused reset (legged_robot.py:723-768) ----
         reset_phys, reset_cmds = self._sample_reset(
-            N, state.env_origin,
+            N, env_origin,
             vx_range=cmd_vx_range if cfg.commands.curriculum else None,
         )
 
@@ -478,8 +580,25 @@ class LeggedEnv:
             last_contacts=state.last_contacts & ~mb,
             episode_length=torch.where(m, 0, episode_length).to(torch.int32),
             episode_sums=torch.where(mb, 0.0, episode_sums),
+            terrain_level=terrain_level,
+            env_origin=env_origin,
             cmd_vx_range=cmd_vx_range,
         )
+
+        # ---- terrain height carry for the next step: the end-of-step point
+        #      xy are the next step's start positions; envs reset since the
+        #      last window refresh are outside their window and stand on
+        #      their spawn platform (env_origin z) until the next refresh ----
+        if self.terrain is not None:
+            with torch.profiler.record_function("terrain_window_contraction"):
+                gh_live = self.grid.height_in_window_rows(
+                    state.win, state.win_corner, aux["p_xy"])
+            stale = state.win_stale | m
+            state = state.replace(
+                gh=torch.where(stale[None, :], env_origin[None, :, 2],
+                               gh_live).contiguous(),
+                win_stale=stale,
+            )
 
         # ---- pushes (legged_robot.py:540-555): overwrite world vxy ----
         if cfg.domain_rand.push_robots:
@@ -514,6 +633,10 @@ class LeggedEnv:
                 for i, name in enumerate(self.episode_term_names)
             },
         }
+        if self.terrain is not None and cfg.terrain.curriculum:
+            extras["episode"]["terrain_level"] = torch.mean(
+                terrain_level.to(torch.float32))
+            extras["terrain_level_mean"] = extras["episode"]["terrain_level"]
         if cfg.commands.curriculum:
             extras["episode"]["max_command_x"] = cmd_vx_range[1]
             extras["max_command_x"] = cmd_vx_range[1]

@@ -1,13 +1,40 @@
-"""Command curriculum and random pushes (counterpart of
-``unitree_rl_gym_tpu/envs/curricula.py``: ``command_curriculum_at_reset``
-and ``push_robots``; the terrain curriculum comes with the terrain slice).
-Mask-driven: evaluated every step, applied with ``torch.where``."""
+"""Terrain and command curricula and random pushes (counterpart of
+``unitree_rl_gym_tpu/envs/curricula.py``: ``terrain_curriculum_at_reset``,
+``command_curriculum_at_reset`` and ``push_robots``). Mask-driven:
+evaluated every step, applied with ``torch.where``; the random draws come
+from the caller's generator."""
 
 from __future__ import annotations
 
 import torch
 
 from unitree_rl_gym_tpu_torch.utils import math as tm
+
+
+def terrain_curriculum_at_reset(tcfg, terrain_origins, max_episode_length_s,
+                                rand_level, reset_mask, base_pos, commands,
+                                terrain_level, terrain_type, env_origin):
+    """New (terrain_level, env_origin) for envs being reset: promote envs
+    that walked past half a sub-terrain, demote those that walked less than
+    half of what their command asked for; graduates of the last row get
+    ``rand_level`` [N] (drawn in [0, num_rows))."""
+    dist = torch.linalg.vector_norm(base_pos[:, :2] - env_origin[:, :2], dim=1)
+    move_up = dist > tcfg.terrain_length / 2.0
+    move_down = (
+        dist < torch.linalg.vector_norm(commands[:, :2], dim=1)
+        * max_episode_length_s * 0.5
+    ) & ~move_up
+    new_level = terrain_level + move_up.to(torch.int32) - move_down.to(torch.int32)
+    new_level = torch.where(new_level >= tcfg.num_rows,
+                            rand_level.to(new_level.dtype),
+                            torch.clamp(new_level, min=0))
+    terrain_level = torch.where(reset_mask, new_level, terrain_level)
+    env_origin = torch.where(
+        reset_mask[:, None],
+        terrain_origins[terrain_level.long(), terrain_type.long()],
+        env_origin,
+    )
+    return terrain_level, env_origin
 
 
 def command_curriculum_at_reset(max_curriculum, tracking_scale,

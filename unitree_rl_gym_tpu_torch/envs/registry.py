@@ -1,15 +1,17 @@
 """Task registry (counterpart of ``unitree_rl_gym_tpu/envs/registry.py``):
-``get_cfgs``, ``make_env``, ``get_task_class``.
+``get_cfgs``, ``make_env``, ``get_task_class``, ``make_alg_runner``.
 
 This slice registers ``go2``. The JAX package's other tasks (the humanoids
 h1, h1_2, g1 with their LSTM policies, and go2_handstand) raise
-``NotImplementedError`` until their slices land; the PPO runner
-(``make_alg_runner``) comes with the training slice."""
+``NotImplementedError`` until their slices land."""
 
 from __future__ import annotations
 
+import os
+from datetime import datetime
 from typing import Callable, Dict, Tuple, Type
 
+from unitree_rl_gym_tpu_torch import UNITREE_RL_GYM_TPU_ROOT_DIR
 from unitree_rl_gym_tpu_torch.envs.base_env import LeggedEnv
 from unitree_rl_gym_tpu_torch.utils import helpers
 from unitree_rl_gym_tpu_torch.utils.config import LeggedRobotCfg, TrainCfg
@@ -62,6 +64,39 @@ class TaskRegistry:
         env_cfg, _ = helpers.update_cfg_from_args(env_cfg, None, args)
         helpers.set_seed(env_cfg.seed)
         return task_class(env_cfg, device=device), env_cfg
+
+    def make_alg_runner(self, env, name=None, args=None, train_cfg=None,
+                        log_root="default"):
+        """The PPO runner and its log dir (task_registry.py:76-127): under
+        ``<repo>/logs/<experiment_name>/<date>_<run_name>`` by default, none
+        with ``log_root=None``. ``runner.resume`` loads the latest (or the
+        named) checkpoint below ``log_root``."""
+        from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
+
+        if args is None:
+            args = helpers.get_args([])
+        if train_cfg is None:
+            if name is None:
+                raise ValueError("Either 'name' or 'train_cfg' must be not None")
+            _, train_cfg = self.get_cfgs(name)
+        _, train_cfg = helpers.update_cfg_from_args(None, train_cfg, args)
+
+        if log_root == "default":
+            log_root = os.path.join(UNITREE_RL_GYM_TPU_ROOT_DIR, "logs",
+                                    train_cfg.runner.experiment_name)
+        log_dir = None if log_root is None else os.path.join(
+            log_root,
+            datetime.now().strftime("%b%d_%H-%M-%S") + "_" + train_cfg.runner.run_name,
+        )
+        runner = OnPolicyRunner(env, train_cfg, log_dir)
+        if train_cfg.runner.resume:
+            resume_path = helpers.get_load_path(
+                log_root, load_run=train_cfg.runner.load_run,
+                checkpoint=train_cfg.runner.checkpoint,
+            )
+            print(f"Loading model from: {resume_path}")
+            runner.load(resume_path)
+        return runner, train_cfg
 
 
 task_registry = TaskRegistry()

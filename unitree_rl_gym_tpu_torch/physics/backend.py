@@ -5,16 +5,25 @@ Two implementations of the decimated control step:
 
   * ``soa``  — physics/soa.py over [N] tensors: the plain PyTorch version,
                the path of every CPU tensor;
-  * kernel K1 — the hand-written CUDA kernel (physics/cuda_step.py), the
-               only path of a CUDA tensor.
+  * kernels K1 (flat ground) and K3 (terrain) — the hand-written CUDA
+               kernels (physics/cuda_step.py), the only path of a CUDA
+               tensor.
 
 ``control_step`` picks one by the tensors' device, and nothing else: there is
-no probe and no fallback, so on a CUDA tensor it launches K1 or raises.
-chip_smoke.py calls ``control_step_soa`` itself to hold the kernel against
-the plain version on the card.
+no probe and no fallback, so on a CUDA tensor it launches K1 (``gh`` None)
+or K3 (``gh`` given) or raises. chip_smoke.py calls ``control_step_soa``
+itself to hold the kernels against the plain version on the card.
+
+Terrain follows the JAX package's kernel formulation on every device:
+``gh`` [ncp,N] rows hold the ground height under every contact point at the
+start of the control step, frozen across its substeps. The JAX package's
+CPU path instead resamples the heightfield every substep (its
+``ground_fn``); that mode is not ported.
 
 Both return ``(PhysicsState, aux)`` with aux = {torques [N,nj],
-cf_rb [N,nrb,3], rb_pos_w [N,nrb,3], rb_vel_w [N,nrb,3]}.
+cf_rb [N,nrb,3], rb_pos_w [N,nrb,3], rb_vel_w [N,nrb,3]}, and with ``gh``
+also p_xy [2*ncp,N] rows: the end-of-step world x (rows 0..ncp-1) and y of
+every point, from which the env computes the next step's ``gh``.
 """
 
 from __future__ import annotations
@@ -42,8 +51,10 @@ def soa_model_for(model: dyn.DynModel) -> soa.SoAModel:
 
 
 def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
-                     friction, mass_scale, m_eff_n, m_eff_t, want_phi=False):
-    """Batched SoA control step in plain PyTorch.
+                     friction, mass_scale, m_eff_n, m_eff_t, gh=None,
+                     want_phi=False):
+    """Batched SoA control step in plain PyTorch (``gh``: see the module
+    docstring).
 
     ``want_phi`` adds ``aux["min_abs_phi"]`` [N]: the smallest |penetration|
     of any contact point over the substeps, which tells a comparison with
@@ -64,7 +75,7 @@ def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
     for _ in range(decimation):
         bp, bq, q, v, tau, pn, pt, phi = soa.substep_s(
             m, cparams, kp, kd, lim, pd.clip_torque, sim_dt,
-            bp, bq, q, v, tgt, friction, mass_scale, m_eff_n, m_eff_t,
+            bp, bq, q, v, tgt, friction, mass_scale, m_eff_n, m_eff_t, gh,
         )
         if want_phi:
             a = phi.abs().amin(dim=0)
@@ -83,22 +94,27 @@ def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
         "rb_pos_w": torch.stack([torch.stack(p, -1) for p in rb_pos], 1),
         "rb_vel_w": torch.stack([torch.stack(u, -1) for u in rb_vel], 1),
     }
+    if gh is not None:
+        _, x_w = soa.point_world_positions_s(m, R_w, p_w, bp[0])
+        aux["p_xy"] = torch.cat([x_w[0], x_w[1]], dim=0)
     if want_phi:
         aux["min_abs_phi"] = min_phi
     return new_state, aux
 
 
 def control_step(model, cparams, pd, sim_dt, decimation, state, target,
-                 friction, mass_scale, m_eff_n, m_eff_t):
-    """The control step of every env: the plain version on a CPU tensor,
-    kernel K1 (through its wrapper, which raises on anything it does not
-    take) on any other."""
+                 friction, mass_scale, m_eff_n, m_eff_t, gh=None):
+    """The control step of every env: the plain version on a CPU tensor;
+    on any other, kernel K1 when ``gh`` is None and kernel K3 when it is
+    given (through their wrappers, which raise on anything they do not
+    take)."""
     if state.joint_q.device.type == "cpu":
         return control_step_soa(
             model, cparams, pd, sim_dt, decimation, state, target, friction,
-            mass_scale, m_eff_n, m_eff_t,
+            mass_scale, m_eff_n, m_eff_t, gh,
         )
-    return cuda_step.control_step(
-        soa_model_for(model), cparams, pd, sim_dt, decimation, state, target,
-        friction, mass_scale, m_eff_n, m_eff_t,
-    )
+    args = (soa_model_for(model), cparams, pd, sim_dt, decimation, state,
+            target, friction, mass_scale, m_eff_n, m_eff_t)
+    if gh is None:
+        return cuda_step.control_step(*args)
+    return cuda_step.control_step_terrain(*args, gh)

@@ -1,13 +1,15 @@
-"""Kernel K1 — the decimated physics control step as a hand-written CUDA
-kernel for Hopper (sm_90a): tables, build, binding, launch count.
+"""Kernels K1 and K3 — the decimated physics control step on flat ground
+(K1) and on heightfield terrain (K3) as hand-written CUDA kernels for Hopper
+(sm_90a): tables, build, binding, launch counts.
 
-Replaces the JAX package's Pallas TPU kernel, flat-ground variant
+Replace the JAX package's Pallas TPU kernel
 (``unitree_rl_gym_tpu/physics/pallas_step.py::_kernel`` launched by
-``control_step_pallas`` with ``has_gh=False, has_cs=False``). The per-env
-body is ``csrc/control_step.cuh`` (one thread per env); the note at the top
-of ``csrc/control_step.cu`` says what bounds it on the H100 and what the
-design does about it; :func:`flops_per_env` and :func:`bytes_per_env` give
-the arithmetic behind that note.
+``control_step_pallas``): K1 its flat variant (``has_gh=False,
+has_cs=False``), K3 its terrain variant (``has_gh=True``). The per-env body
+is ``csrc/control_step.cuh`` (one thread per env, one template for both);
+the note at the top of ``csrc/control_step.cu`` says what bounds them on
+the H100 and what the design does about it; :func:`flops_per_env` and
+:func:`bytes_per_env` give the arithmetic behind that note.
 
 Build: ``nvcc -shared -Xcompiler -fPIC`` of ``csrc/control_step.cu`` into a
 shared library with a plain C interface, at first use, into
@@ -17,9 +19,10 @@ compiled, so the build takes seconds. The model's sizes are compile-time
 constants (``-DUTRL_NB/NCP/NRB``); its numbers travel as a
 :func:`model_tables` byte buffer on the device.
 
-:func:`control_step` is the wrapper: it launches the kernel on CUDA tensors
-and raises on anything else (``backend.control_step`` sends CPU tensors to
-the plain version). ``LAUNCHES`` counts kernel launches.
+:func:`control_step` (K1) and :func:`control_step_terrain` (K3) are the
+wrappers: each launches its kernel on CUDA tensors and raises on anything
+else (``backend.control_step`` sends CPU tensors to the plain version).
+``LAUNCHES`` counts K1's launches, ``LAUNCHES_TERRAIN`` K3's.
 """
 
 from __future__ import annotations
@@ -42,18 +45,22 @@ from unitree_rl_gym_tpu_torch.physics import soa
 CSRC_DIR = os.path.join(UNITREE_RL_GYM_TPU_TORCH_DIR, "csrc")
 BUILD_DIR = os.path.join(UNITREE_RL_GYM_TPU_TORCH_DIR, "_build")
 SOURCES = ("control_step.cu", "control_step.cuh")
+# -fmad=false: no multiply-add contraction, so the kernels round every
+# product and sum as the plain version's separate torch ops do (the contact
+# solve amplifies last-bit differences into visible velocity errors)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# kernel launches since the last reset (chip_smoke.py zeroes it around the
-# main path to show that the path went through the kernel)
-LAUNCHES = 0
+# kernel launches since the last reset (chip_smoke.py zeroes them around
+# each path it drives to show that the path went through the kernel)
+LAUNCHES = 0            # K1
+LAUNCHES_TERRAIN = 0    # K3
 # nvcc's stderr (ptxas register / spill report) of each build, by library
 BUILD_LOGS: Dict[str, str] = {}
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[tuple, ctypes.CDLL] = {}   # by (flags, sizes)
 _TABLES: Dict[tuple, tuple] = {}
 _LOCK = threading.Lock()
 
@@ -131,11 +138,14 @@ def model_tables(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
 # ---------------------------------------------------------------------------
 
 
-def flops_per_env(m: soa.SoAModel, decimation: int, iterations: int) -> int:
+def flops_per_env(m: soa.SoAModel, decimation: int, iterations: int,
+                  terrain: bool = False) -> int:
     """Floating-point operations of one env's control step in the kernel
     body, counted from csrc/control_step.cuh (add, sub, mul, div, min, max,
     sqrt, sin, cos, tanh each count 1; a 3x3 mat-vec is 15, a 3x3 product
-    45, a cross product 9, a spatial transform 42)."""
+    45, a cross product 9, a spatial transform 42). ``terrain`` counts K3:
+    one add per point and substep for the ground height, and the end-of-step
+    point xy (2 x 6 per point)."""
     nb, nj, nv, ncp, nrb = m.nb, m.nj, m.nv, m.ncp, m.nrb
     depth = 0  # sum over joints of their chain length to the base (CRBA)
     for i in range(1, nb):
@@ -155,14 +165,19 @@ def flops_per_env(m: soa.SoAModel, decimation: int, iterations: int) -> int:
     substep = (fk + vprop + 6 * nj + bias + crba + chol + solve + 6 * nj
                + 2 * nv + setup + iterations * pgs + tail)
     post = fk + vprop + 45 * nrb + 6 * ncp
+    if terrain:
+        substep += ncp
+        post += 12 * ncp
     return decimation * substep + post
 
 
-def bytes_per_env(m: soa.SoAModel) -> int:
+def bytes_per_env(m: soa.SoAModel, terrain: bool = False) -> int:
     """Bytes one env must move: each fp32 input read once, each output
-    written once (the model tables are shared by all envs)."""
-    n_in = 3 + 4 + m.nj + m.nv + m.nj + 1 + 1
-    n_out = 3 + 4 + m.nj + m.nv + m.nj + 3 * 3 * m.nrb
+    written once (the model tables are shared by all envs). ``terrain``
+    counts K3: gh [ncp] in, p_xy [2*ncp] out."""
+    n_in = 3 + 4 + m.nj + m.nv + m.nj + 1 + 1 + (m.ncp if terrain else 0)
+    n_out = (3 + 4 + m.nj + m.nv + m.nj + 3 * 3 * m.nrb
+             + (2 * m.ncp if terrain else 0))
     return 4 * (n_in + n_out)
 
 
@@ -213,9 +228,14 @@ def build(m: soa.SoAModel) -> str:
 
 
 def _library(m: soa.SoAModel) -> ctypes.CDLL:
-    path = library_path(m)
+    """The loaded library for this model's sizes; built (or found by the
+    hash of its sources) once per process, not hashed again per launch."""
+    key = (NVCC_FLAGS, size_defines(m))
+    lib = _LIBS.get(key)
+    if lib is not None:
+        return lib
     with _LOCK:
-        lib = _LIBS.get(path)
+        lib = _LIBS.get(key)
         if lib is None:
             lib = ctypes.CDLL(build(m))
             lib.utrl_model_bytes.restype = ctypes.c_longlong
@@ -224,7 +244,11 @@ def _library(m: soa.SoAModel) -> ctypes.CDLL:
             lib.utrl_control_step.argtypes = (
                 [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16
             )
-            _LIBS[path] = lib
+            lib.utrl_control_step_terrain.restype = ctypes.c_int
+            lib.utrl_control_step_terrain.argtypes = (
+                [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 18
+            )
+            _LIBS[key] = lib
     return lib
 
 
@@ -263,18 +287,16 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def control_step(m: soa.SoAModel, cparams, pd, sim_dt, decimation, state,
-                 target, friction, mass_scale, m_eff_n, m_eff_t):
-    """K1's wrapper: the decimated control step of every env of SoAModel
-    ``m``, launched on the current stream. Raises on a tensor that is not on
-    CUDA or that the kernel does not take. Returns (PhysicsState, aux) like
-    ``backend.control_step_soa``."""
+def _launch(m, cparams, pd, sim_dt, decimation, state, target, friction,
+            mass_scale, m_eff_n, m_eff_t, gh, name):
+    """Check the operands, allocate the outputs and launch K1 (``gh`` None)
+    or K3 on the current stream. Returns (PhysicsState, aux)."""
     dev = state.joint_q.device
     if dev.type != "cuda":
-        raise ValueError(f"kernel K1 runs on CUDA tensors, got {dev}")
+        raise ValueError(f"kernel {name} runs on CUDA tensors, got {dev}")
     N = state.joint_q.shape[0]
-    nj, nv, nrb = m.nj, m.nv, m.nrb
-    inputs = (
+    nj, nv, nrb, ncp = m.nj, m.nv, m.nrb, m.ncp
+    inputs = [
         ("base_pos", state.base_pos, (N, 3)),
         ("base_quat", state.base_quat, (N, 4)),
         ("joint_q", state.joint_q, (N, nj)),
@@ -282,9 +304,11 @@ def control_step(m: soa.SoAModel, cparams, pd, sim_dt, decimation, state,
         ("target", target, (N, nj)),
         ("friction", friction, (N,)),
         ("mass_scale", mass_scale, (N,)),
-    )
-    for name, t, shape in inputs:
-        _check(name, t, shape, dev)
+    ]
+    if gh is not None:
+        inputs.append(("gh", gh, (ncp, N)))
+    for arg, t, shape in inputs:
+        _check(arg, t, shape, dev)
     lib = _library(m)
     tables = _device_tables(lib, m, cparams, pd, sim_dt, decimation, m_eff_n,
                             m_eff_t, dev)
@@ -297,21 +321,47 @@ def control_step(m: soa.SoAModel, cparams, pd, sim_dt, decimation, state,
         v=empty(N, nv), torques=empty(N, nj), cf_rb=empty(N, nrb, 3),
         rb_pos_w=empty(N, nrb, 3), rb_vel_w=empty(N, nrb, 3),
     )
+    if gh is not None:
+        out["p_xy"] = empty(2 * ncp, N)
+    fn = lib.utrl_control_step if gh is None else lib.utrl_control_step_terrain
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.utrl_control_step(
+        err = fn(
             tables.data_ptr(), N,
             *(t.data_ptr() for _, t, _ in inputs),
             *(t.data_ptr() for t in out.values()),
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"kernel K1 launch failed: cudaError {err}")
+        raise RuntimeError(f"kernel {name} launch failed: cudaError {err}")
+    new_state = eng.PhysicsState(
+        base_pos=out.pop("base_pos"), base_quat=out.pop("base_quat"),
+        joint_q=out.pop("joint_q"), v=out.pop("v"),
+    )
+    return new_state, out
+
+
+def control_step(m: soa.SoAModel, cparams, pd, sim_dt, decimation, state,
+                 target, friction, mass_scale, m_eff_n, m_eff_t):
+    """K1's wrapper: the decimated control step of every env of SoAModel
+    ``m`` on flat ground, launched on the current stream. Raises on a tensor
+    that is not on CUDA or that the kernel does not take. Returns
+    (PhysicsState, aux) like ``backend.control_step_soa``."""
+    res = _launch(m, cparams, pd, sim_dt, decimation, state, target, friction,
+                  mass_scale, m_eff_n, m_eff_t, None, "K1")
     global LAUNCHES
     LAUNCHES += 1
-    new_state = eng.PhysicsState(
-        base_pos=out["base_pos"], base_quat=out["base_quat"],
-        joint_q=out["joint_q"], v=out["v"],
-    )
-    aux = {k: out[k] for k in ("torques", "cf_rb", "rb_pos_w", "rb_vel_w")}
-    return new_state, aux
+    return res
+
+
+def control_step_terrain(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
+                         state, target, friction, mass_scale, m_eff_n,
+                         m_eff_t, gh):
+    """K3's wrapper: K1 above per-point ground heights ``gh`` [ncp, N]
+    (frozen across the substeps); aux gains ``p_xy`` [2*ncp, N], the
+    end-of-step world x and y rows of every point. Raises like K1's."""
+    res = _launch(m, cparams, pd, sim_dt, decimation, state, target, friction,
+                  mass_scale, m_eff_n, m_eff_t, gh, "K3")
+    global LAUNCHES_TERRAIN
+    LAUNCHES_TERRAIN += 1
+    return res

@@ -1,5 +1,5 @@
 """Env-SoA (structure-of-arrays) control step: the plain PyTorch version of
-the CUDA kernel K1 (counterpart of ``unitree_rl_gym_tpu/physics/soa.py``).
+the CUDA kernels K1 and K3 (counterpart of ``unitree_rl_gym_tpu/physics/soa.py``).
 
 Every physical scalar is a ``[N]`` tensor over the env batch, vectors and
 matrices are Python tuples of those, and the small recursions (FK, RNEA,
@@ -8,8 +8,8 @@ floats, so the ``_add``/``_mul``/``_mac`` helpers fold multiplies by
 structural 0 / ±1 away exactly as the JAX package does; the PGS and
 decimation loops are Python ``for`` loops.
 
-This module is the reference the CUDA kernel (csrc/control_step.cuh,
-physics/cuda_step.py) is held against, and the path a CPU tensor takes
+This module is the reference the CUDA kernels (csrc/control_step.cuh,
+physics/cuda_step.py) are held against, and the path a CPU tensor takes
 (physics/backend.py). It launches thousands of tiny ops per control step,
 so on the card it is a correctness yardstick, not a fast path.
 """
@@ -605,11 +605,16 @@ def _gather(m: SoAModel, vals: Sequence[Scalar], like: torch.Tensor):
 
 
 def _scatter_sum(m: SoAModel, parr):
-    """Per-point [ncp, N] -> per-dyn-body list of sums."""
+    """Per-point [ncp, N] -> per-dyn-body list of sums, added point after
+    point in order (the kernel's order; a device reduction would choose its
+    own)."""
     out = []
     for b in range(m.nb):
         s, e = m.cp_slice[b]
-        out.append(0.0 if e == s else torch.sum(parr[s:e], dim=0))
+        acc = 0.0
+        for i in range(s, e):
+            acc = acc + parr[i]
+        out.append(acc)
     return out
 
 
@@ -635,9 +640,11 @@ def point_world_positions_s(m: SoAModel, R_w, p_w, like):
 
 def contact_solve_s(m: SoAModel, params, E_up, R_w, p_w, chol,
                     v: List[Scalar], m_eff_n: np.ndarray, m_eff_t: np.ndarray,
-                    friction_env, dt: float):
-    """PGS impulse solve on the z=0 plane (the JAX package's
-    ``contact_solve_s`` without the terrain and stiffness operands).
+                    friction_env, dt: float, gh_frozen=None):
+    """PGS impulse solve (the JAX package's ``contact_solve_s`` without the
+    stiffness operand and the per-substep ``ground_fn``). ``gh_frozen``
+    [ncp,N] holds the ground height under every point, frozen across the
+    control step's substeps; None is the z=0 plane.
     Returns (v_new [nv], pn [ncp,N], (ptx, pty), phi [ncp,N])."""
     L, rinv, pos = chol
     like = next(x for x in v if not _is_const(x))
@@ -648,7 +655,10 @@ def contact_solve_s(m: SoAModel, params, E_up, R_w, p_w, chol,
     met = _pc(m_eff_t, like)
 
     r_w, x_w = point_world_positions_s(m, R_w, p_w, like)
-    phi = radius_c - x_w[2]
+    if gh_frozen is None:
+        phi = radius_c - x_w[2]
+    else:
+        phi = radius_c + gh_frozen - x_w[2]
     active = phi > 0.0
     activef = active.to(torch.float32)
     v_bias = torch.clamp(
@@ -727,9 +737,11 @@ def contact_solve_s(m: SoAModel, params, E_up, R_w, p_w, chol,
 
 def substep_s(m, params, pd_kp, pd_kd, pd_lim, clip_torque, sim_dt,
               bp, bq, q, v, target, friction_env, mass_scale,
-              m_eff_n, m_eff_t):
+              m_eff_n, m_eff_t, gh_frozen=None):
     """One physics substep. All args/returns are scalar lists / tuples of
-    [N] tensors. Returns (bp, bq, q, v, tau, pn, (ptx, pty), phi)."""
+    [N] tensors; ``gh_frozen`` [ncp,N] is the ground height under every
+    point (None: the z=0 plane). Returns (bp, bq, q, v, tau, pn,
+    (ptx, pty), phi)."""
     R_w, p_w, E_up, v_b = fk_s(m, bp, bq, q, v)
 
     tau = [
@@ -759,7 +771,7 @@ def substep_s(m, params, pd_kp, pd_kd, pd_lim, clip_torque, sim_dt,
 
     v_new, pn, pt, phi = contact_solve_s(
         m, params, E_up, R_w, p_w, chol, v_free, m_eff_n, m_eff_t,
-        friction_env, sim_dt,
+        friction_env, sim_dt, gh_frozen,
     )
 
     # PhysX-parity joint velocity clamp and base velocity caps
