@@ -2,7 +2,10 @@
 system refuses jax, jaxlib, flax, optax and unitree_rl_gym_tpu (the GPU
 machine's situation), every module of unitree_rl_gym_tpu_torch (the PPO
 runner and the terrain included) and chip_smoke import, the go2 env builds
-on the CPU at N=4 and steps once, and its PPO runner builds and acts."""
+on the CPU at N=4 and steps once, and its PPO runner builds and acts; the
+go2_handstand env of the robustness fine-tune (its DR on) builds and
+resets, and the fine-tune's runner (its PPO knobs on) takes the shipped
+weights, sets its anchor and acts."""
 
 import os
 import subprocess
@@ -42,6 +45,26 @@ SCRIPT = textwrap.dedent(
     state, obs, _, rew, done, _ = env.step(state, torch.zeros(4, 12))
     assert tuple(obs.shape) == (4, 48) and bool(torch.isfinite(obs).all())
     runner, _ = task_registry.make_alg_runner(env, name="go2", log_root=None)
+    assert tuple(runner.get_inference_policy()(obs).shape) == (4, 12)
+
+    # the handstand fine-tune's env (contact-stiffness, PD-gain and
+    # actuation-delay DR) and runner (nan guard, anchor KL, class weights)
+    from unitree_rl_gym_tpu_torch import resource
+    from unitree_rl_gym_tpu_torch.models.networks import load_flat_params
+    cfg, tcfg = task_registry.get_cfgs("go2_handstand")
+    cfg.env.num_envs = 4
+    cfg.domain_rand.randomize_contact_stiffness = True
+    cfg.domain_rand.randomize_pd_gain = True
+    cfg.domain_rand.action_delay_prob = 0.1
+    tcfg.algorithm.nan_guard = True
+    tcfg.algorithm.anchor_kl_coef = 0.3
+    tcfg.algorithm.class_target_frac = 0.5
+    env = task_registry.get_task_class("go2_handstand")(cfg, device="cpu")
+    state, obs = env.reset_all()
+    assert state.cstiff is not None and tuple(obs.shape) == (4, 46)
+    runner, _ = task_registry.make_alg_runner(env, train_cfg=tcfg, log_root=None)
+    load_flat_params(runner.net, resource("resources/pre_train/go2_handstand"))
+    runner.set_anchor()
     assert tuple(runner.get_inference_policy()(obs).shape) == (4, 12)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
     assert not leaked, leaked

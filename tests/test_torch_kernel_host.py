@@ -1,10 +1,14 @@
-"""The per-env body of kernels K1 and K3 (csrc/control_step.cuh, the code
-the CUDA kernels run per thread) compiled for the host with g++ -O1 into
-pytest's tmp dir and held against the port's plain version at N=8, at the
-physics tolerance of tests/test_torch_physics.py: K1 (``HAS_GH=false``)
+"""The per-env body of kernels K1, K3 and K2 (csrc/control_step.cuh, the
+code the CUDA kernels run per thread) compiled for the host with g++ -O1
+into pytest's tmp dir and held against the port's plain version at N=8, at
+the physics tolerance of tests/test_torch_physics.py: K1 (``HAS_GH=false``)
 grounded and airborne on the plane, K3 (``HAS_GH=true``) standing on the
 tiny heightfield of tests/test_pallas_terrain.py, its end-of-step point xy
-(``p_xy``) included. This catches kernel math errors on machines without a
+(``p_xy``) included, and K2 (``HAS_CS=true``) with per-env contact
+stiffnesses from 0.25 to 3.0: on the plane at the go2 handstand's sizes
+(79 contact points, decimation 5, torques not clipped), grounded, and on
+the tiny heightfield at go2's. With every stiffness 1, K2's host body
+gives K1's bits. This catches kernel math errors on machines without a
 GPU; it is never a runtime path.
 
 The ``cuda``-marked tests hold the real kernels against the plain version
@@ -20,6 +24,9 @@ import pytest
 import torch
 
 from unitree_rl_gym_tpu_torch.envs.go2 import go2_rough_cfg
+from unitree_rl_gym_tpu_torch.envs.go2_handstand import (
+    FOOT_RADIUS, GO2HandstandEnv, go2_handstand_cfg,
+)
 from unitree_rl_gym_tpu_torch.envs.base_env import LeggedEnv
 from unitree_rl_gym_tpu_torch.physics import backend as pb
 from unitree_rl_gym_tpu_torch.physics import cuda_step
@@ -30,6 +37,9 @@ STATE_FIELDS = ("base_pos", "base_quat", "joint_q", "v")
 AUX_KEYS = ("torques", "cf_rb", "rb_pos_w", "rb_vel_w")
 # outputs held to the state's tolerance (p_xy: K3's end-of-step point xy)
 POSITION_KEYS = STATE_FIELDS + ("p_xy",)
+# per-env contact stiffnesses of the K2 cases (the JAX suite's extremes
+# 0.25 and 3.0, the fine-tune's range 0.7-1.5, and 1)
+CSTIFF = np.float32([0.25, 0.5, 0.7, 1.0, 1.2, 1.5, 2.0, 3.0])
 
 
 def tiny_terrain(cfg):
@@ -76,6 +86,26 @@ def terrain_inputs(env, n, seed):
     return x
 
 
+def handstand_env(n):
+    """The go2 handstand env on the CPU (79 contact points, decimation 5,
+    torques not clipped)."""
+    cfg = go2_handstand_cfg()
+    cfg.env.num_envs = n
+    return GO2HandstandEnv(cfg, device="cpu")
+
+
+def handstand_inputs(env, n, seed):
+    """``make_inputs`` at the handstand's default crouch with the lowest
+    foot 4 mm into the ground, and ``cstiff`` [n] from :data:`CSTIFF`."""
+    dd = env.default_dof_pos.numpy()
+    x = make_inputs(dd, n, True, seed)
+    rb_pos = env._feet_world(0.0, dd)[0].numpy()
+    feet_z = rb_pos[env.feet_indices.numpy(), 2]
+    x["base_pos"][:, 2] = FOOT_RADIUS - float(feet_z.min()) - 0.004
+    x["cstiff"] = np.resize(CSTIFF, n)
+    return x
+
+
 def _step(fn, env, x, device):
     t = {k: torch.from_numpy(v).to(device) for k, v in x.items()}
     cfg = env.cfg
@@ -83,7 +113,7 @@ def _step(fn, env, x, device):
         env.robot.dyn, env.cparams, env.pd, cfg.sim.dt, cfg.control.decimation,
         eng.PhysicsState(**{k: t[k] for k in STATE_FIELDS}), t["target"],
         t["friction"], t["mass_scale"], env.m_eff_n, env.m_eff_t,
-        gh=t.get("gh"),
+        gh=t.get("gh"), cstiff=t.get("cstiff"),
     )
     out = {k: getattr(s, k) for k in STATE_FIELDS}
     out.update(aux)
@@ -96,8 +126,9 @@ def plain_step(env, x, device="cpu"):
 
 
 def env_step(env, x, device="cpu"):
-    """What ``LeggedEnv.step`` runs (``backend.control_step``): K1 (or K3
-    with ``gh``) on a CUDA tensor, the plain version on a CPU tensor."""
+    """What ``LeggedEnv.step`` runs (``backend.control_step``): K1 (K3 with
+    ``gh``, K2 with ``cstiff``) on a CUDA tensor, the plain version on a
+    CPU tensor."""
     return _step(pb.control_step, env, x, device)
 
 
@@ -136,29 +167,33 @@ def build_host_lib(m, out_dir):
     lib.utrl_control_step_host.restype = ctypes.c_int
     lib.utrl_control_step_host.argtypes = (
         [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15)
-    lib.utrl_control_step_terrain_host.restype = ctypes.c_int
-    lib.utrl_control_step_terrain_host.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 17)
+    for name, n_ptr in (("utrl_control_step_terrain_host", 17),
+                         ("utrl_control_step_cs_host", 16),
+                         ("utrl_control_step_terrain_cs_host", 18)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * n_ptr
     return lib
 
 
 def host_step(lib, m, tables, x):
     """One control step of every env of ``x`` through the host build: K1's
-    body, or K3's when ``x`` holds ``gh``."""
+    body, K3's when ``x`` holds ``gh``, K2's when it holds ``cstiff``."""
     assert lib.utrl_model_bytes() == len(tables)
     blob = ctypes.create_string_buffer(tables)
     n = x["joint_q"].shape[0]
-    terrain = "gh" in x
+    terrain, cs = "gh" in x, "cstiff" in x
     ins = [np.ascontiguousarray(x[k]) for k in
            STATE_FIELDS + ("target", "friction", "mass_scale")
-           + (("gh",) if terrain else ())]
+           + (("gh",) if terrain else ()) + (("cstiff",) if cs else ())]
     shapes = dict(base_pos=(n, 3), base_quat=(n, 4), joint_q=(n, m.nj),
                   v=(n, m.nv), torques=(n, m.nj), cf_rb=(n, m.nrb, 3),
                   rb_pos_w=(n, m.nrb, 3), rb_vel_w=(n, m.nrb, 3))
     if terrain:
         shapes["p_xy"] = (2 * m.ncp, n)
     outs = {k: np.zeros(s, np.float32) for k, s in shapes.items()}
-    fn = lib.utrl_control_step_terrain_host if terrain else lib.utrl_control_step_host
+    fn = getattr(lib, "utrl_control_step" + ("_terrain" if terrain else "")
+                 + ("_cs" if cs else "") + "_host")
     rc = fn(ctypes.addressof(blob), n,
             *(a.ctypes.data for a in ins), *(a.ctypes.data for a in outs.values()))
     assert rc == 0
@@ -295,3 +330,106 @@ def test_cuda_wrapper_rejects_bad_operands(env, cuda_device):
     x["joint_q"] = x["joint_q"].astype(np.float64)
     with pytest.raises(ValueError, match="float32"):
         env_step(env, x, cuda_device)
+
+
+# ---------------------------------------------------------------------------
+# K2: the contact-stiffness instances
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def hs_env():
+    return handstand_env(N)
+
+
+@pytest.fixture(scope="module")
+def hs_host_lib(hs_env, tmp_path_factory):
+    """The host build at the handstand's sizes (79 contact points)."""
+    return build_host_lib(pb.soa_model_for(hs_env.robot.dyn),
+                          tmp_path_factory.mktemp("k2_host"))
+
+
+@pytest.fixture(scope="module")
+def host_vs_plain_cs(hs_env, hs_host_lib, terrain_env, host_lib):
+    """{case: (plain outputs, K2 host-body outputs)}: flat at the
+    handstand's sizes, and on the tiny heightfield at go2's."""
+    flat = handstand_inputs(hs_env, N, seed=4)
+    terrain = dict(terrain_inputs(terrain_env, N, seed=4), cstiff=CSTIFF)
+    return {
+        "flat": (plain_step(hs_env, flat),
+                 host_step(hs_host_lib, *env_tables(hs_env), flat)),
+        "terrain": (plain_step(terrain_env, terrain),
+                    host_step(host_lib, *env_tables(terrain_env), terrain)),
+    }
+
+
+@pytest.mark.parametrize(
+    "case,output",
+    [("flat", k) for k in STATE_FIELDS + AUX_KEYS]
+    + [("terrain", k) for k in POSITION_KEYS + AUX_KEYS])
+def test_cs_host_body_matches_plain(host_vs_plain_cs, case, output):
+    ref, got = host_vs_plain_cs[case]
+    assert_close(ref, got, [output])
+    if output == "cf_rb":
+        assert float(np.abs(got["cf_rb"]).max()) > 1.0
+
+
+def test_cs_inputs_exercise_the_stiffness(hs_env):
+    """The flat K2 case is in contact and its stiffnesses change the
+    contact response (the plain version with cstiff vs without)."""
+    x = handstand_inputs(hs_env, N, seed=4)
+    with_cs = plain_step(hs_env, x)
+    x.pop("cstiff")
+    without = plain_step(hs_env, x)
+    moved = np.abs(with_cs["v"] - without["v"]).max(axis=1)
+    assert moved[CSTIFF == 1.0].max() == 0.0
+    assert moved[CSTIFF != 1.0].min() > 1e-4
+
+
+def test_cs_host_body_with_unit_stiffness_is_k1(hs_env, hs_host_lib):
+    """K2's body with every stiffness 1 gives K1's bits."""
+    x = handstand_inputs(hs_env, N, seed=5)
+    x["cstiff"] = np.ones(N, np.float32)
+    k2 = host_step(hs_host_lib, *env_tables(hs_env), x)
+    x.pop("cstiff")
+    k1 = host_step(hs_host_lib, *env_tables(hs_env), x)
+    for k in STATE_FIELDS + AUX_KEYS:
+        np.testing.assert_array_equal(k2[k], k1[k], err_msg=k)
+
+
+def test_cs_kernel_wrapper_rejects_cpu_tensors(hs_env):
+    """K2's wrapper, like K1's, launches on CUDA tensors only."""
+    env = hs_env
+    x = handstand_inputs(env, N, seed=7)
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    cfg = env.cfg
+    before = cuda_step.LAUNCHES_CS
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_step.control_step_cs(
+            pb.soa_model_for(env.robot.dyn), env.cparams, env.pd, cfg.sim.dt,
+            cfg.control.decimation,
+            eng.PhysicsState(**{k: t[k] for k in STATE_FIELDS}), t["target"],
+            t["friction"], t["mass_scale"], env.m_eff_n, env.m_eff_t,
+            t["cstiff"],
+        )
+    assert cuda_step.LAUNCHES_CS == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flat", "terrain"])
+def test_cuda_cs_kernel_matches_plain(hs_env, terrain_env, cuda_device, case):
+    """K2 on the card against the plain version: flat at the handstand's
+    sizes, and with ``gh`` on the tiny heightfield."""
+    if case == "flat":
+        env, x = hs_env, handstand_inputs(hs_env, 64, seed=5)
+        keys = STATE_FIELDS + AUX_KEYS
+    else:
+        env = terrain_env
+        x = dict(terrain_inputs(env, 64, seed=5), cstiff=np.resize(CSTIFF, 64))
+        keys = POSITION_KEYS + AUX_KEYS
+    ref = plain_step(env, x, cuda_device)
+    before = cuda_step.LAUNCHES_CS
+    got = env_step(env, x, cuda_device)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES_CS == before + 1
+    assert_close(ref, got, keys)

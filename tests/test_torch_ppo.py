@@ -200,7 +200,7 @@ def minibatch_steps():
                     params=_flat_tree(params), lr=float(lr))
         tb = Batch(**{k: torch.from_numpy(np.ascontiguousarray(v))
                       for k, v in bnp.items() if k != "critic_obs"}, critic_obs=None)
-        tloss, (_, _, tkl) = tppo.loss(tb)
+        tloss, (_, _, tkl, _) = tppo.loss(tb)
         tppo.optimizer.zero_grad()
         tloss.backward()
         tgrads = _port_grads(tppo)

@@ -56,6 +56,14 @@ def test_cuda_without_gpu_raises():
 
 @pytest.mark.parametrize("task", ["h1", "h1_2", "g1", "go2_handstand"])
 def test_unported_tasks_raise(task):
+    if task == "go2_handstand":
+        # the handstand is ported now: its cfgs and class are registered
+        # (the humanoids still raise)
+        cfg, train_cfg = task_registry.get_cfgs(task)
+        assert cfg.env.num_observations == 46
+        assert train_cfg.runner.experiment_name == "go2_handstand"
+        assert task_registry.get_task_class(task).__name__ == "GO2HandstandEnv"
+        return
     with pytest.raises(NotImplementedError):
         task_registry.get_cfgs(task)
 
@@ -63,20 +71,28 @@ def test_unported_tasks_raise(task):
 @pytest.mark.parametrize("knob", ["heightfield", "contact_stiffness", "pd_gain",
                                   "act_delay"])
 def test_unported_features_raise(knob):
+    """Every knob here is ported now: the heightfield env builds its
+    terrain, and each DR knob builds an env whose reset draws the knob's
+    per-env values within their range."""
     cfg, _ = task_registry.get_cfgs("go2")
     cfg.env.num_envs = 2
     if knob == "heightfield":
-        # heightfield terrain is ported now: the env builds its terrain
-        # (the knobs below still raise)
         cfg.terrain.mesh_type = "heightfield"
         env = task_registry.get_task_class("go2")(cfg, device="cpu")
         assert env.terrain is not None and env.grid.heights.shape == (1300, 2100)
         return
     if knob == "contact_stiffness":
         cfg.domain_rand.randomize_contact_stiffness = True
+        field, (lo, hi) = "cstiff", cfg.domain_rand.contact_stiffness_range
     elif knob == "pd_gain":
         cfg.domain_rand.randomize_pd_gain = True
+        field, (lo, hi) = "pd_gain", cfg.domain_rand.pd_gain_range
     else:
         cfg.domain_rand.action_delay_prob = 0.5
-    with pytest.raises(NotImplementedError):
-        task_registry.get_task_class("go2")(cfg, device="cpu")
+        field, (lo, hi) = "act_delay", (0, 1)
+    env = task_registry.get_task_class("go2")(cfg, device="cpu")
+    state, obs = env.reset_all()
+    drawn = getattr(state, field)
+    assert drawn.shape == (2,)
+    assert bool(((drawn >= lo) & (drawn <= hi)).all())
+    assert torch.isfinite(obs).all()

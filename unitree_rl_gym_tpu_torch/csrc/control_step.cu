@@ -6,8 +6,9 @@
 // unitree_rl_gym_tpu/physics/pallas_step.py::_kernel as launched by
 // control_step_pallas: K1 its flat variant (has_gh=False, has_cs=False), K3
 // its terrain variant (has_gh=True, has_cs=False). Both are instances of one
-// template (control_step.cuh, HAS_GH). K3 adds per env 68 ground heights
-// read (272 bytes for go2) and 136 point coordinates written (544 bytes),
+// template (control_step.cuh, HAS_GH, HAS_CS = false); K2, its HAS_CS
+// instances, is launched from control_step_cs.cu, a library of its own.
+// K3 adds per env 68 ground heights read (272 bytes for go2) and 136 point coordinates written (544 bytes),
 // both in the JAX package's [points, envs] row layout, so a warp's 32
 // envs read and write 128 contiguous bytes per point; its arithmetic is
 // K1's plus the point xy of the settled state, and it is bound by
@@ -40,28 +41,6 @@
 
 #include "control_step.cuh"
 
-template <bool HAS_GH>
-__global__ void __launch_bounds__(32) utrl_control_step_kernel(
-    const ModelTables* __restrict__ M, int n_envs,
-    const float* __restrict__ bp, const float* __restrict__ bq,
-    const float* __restrict__ q, const float* __restrict__ v,
-    const float* __restrict__ target, const float* __restrict__ friction,
-    const float* __restrict__ mass_scale, const float* __restrict__ gh,
-    float* __restrict__ bp_out, float* __restrict__ bq_out,
-    float* __restrict__ q_out, float* __restrict__ v_out,
-    float* __restrict__ tau_out, float* __restrict__ cf_out,
-    float* __restrict__ rbp_out, float* __restrict__ rbv_out,
-    float* __restrict__ pxy_out) {
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= n_envs) return;
-    utrl_control_step_env<HAS_GH>(*M, n, n_envs, bp, bq, q, v, target,
-                                  friction, mass_scale, gh, bp_out, bq_out,
-                                  q_out, v_out, tau_out, cf_out, rbp_out,
-                                  rbv_out, pxy_out);
-}
-
-static const int kThreads = 32;
-
 extern "C" long long utrl_model_bytes(void) {
     return (long long)sizeof(ModelTables);
 }
@@ -75,12 +54,12 @@ extern "C" int utrl_control_step(
     float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
     float* cf_out, float* rbp_out, float* rbv_out, void* stream) {
     if (n_envs <= 0) return 0;
-    const int blocks = (n_envs + kThreads - 1) / kThreads;
-    utrl_control_step_kernel<false>
-        <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    const int blocks = (n_envs + kUtrlThreads - 1) / kUtrlThreads;
+    utrl_control_step_kernel<false, false>
+        <<<blocks, kUtrlThreads, 0, (cudaStream_t)stream>>>(
             (const ModelTables*)model, n_envs, bp, bq, q, v, target, friction,
-            mass_scale, nullptr, bp_out, bq_out, q_out, v_out, tau_out, cf_out,
-            rbp_out, rbv_out, nullptr);
+            mass_scale, nullptr, nullptr, bp_out, bq_out, q_out, v_out,
+            tau_out, cf_out, rbp_out, rbv_out, nullptr);
     return (int)cudaGetLastError();
 }
 
@@ -94,11 +73,11 @@ extern "C" int utrl_control_step_terrain(
     float* cf_out, float* rbp_out, float* rbv_out, float* pxy_out,
     void* stream) {
     if (n_envs <= 0) return 0;
-    const int blocks = (n_envs + kThreads - 1) / kThreads;
-    utrl_control_step_kernel<true>
-        <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    const int blocks = (n_envs + kUtrlThreads - 1) / kUtrlThreads;
+    utrl_control_step_kernel<true, false>
+        <<<blocks, kUtrlThreads, 0, (cudaStream_t)stream>>>(
             (const ModelTables*)model, n_envs, bp, bq, q, v, target, friction,
-            mass_scale, gh, bp_out, bq_out, q_out, v_out, tau_out, cf_out,
-            rbp_out, rbv_out, pxy_out);
+            mass_scale, gh, nullptr, bp_out, bq_out, q_out, v_out, tau_out,
+            cf_out, rbp_out, rbv_out, pxy_out);
     return (int)cudaGetLastError();
 }

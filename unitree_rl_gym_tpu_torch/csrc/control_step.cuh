@@ -1,4 +1,5 @@
-// Per-env body of kernels K1 (flat ground) and K3 (terrain), the decimated
+// Per-env body of kernels K1 (flat ground), K3 (terrain) and K2 (either,
+// with a per-env contact stiffness), the decimated
 // physics control step: `decimation` x (PD torque + clip, FK, RNEA bias +
 // passive terms,
 // CRBA, Cholesky factor and solve, PGS contact with Baumgarte bias,
@@ -12,6 +13,11 @@
 // world xy of every point at the end of the step is written out (p_xy),
 // from which the env computes the next step's gh. K1 is HAS_GH = false:
 // the z = 0 plane, no p_xy.
+//
+// K2 is the HAS_CS = true instances (flat and terrain): the env's contact
+// stiffness cs (read once per control step into a register) multiplies
+// every point's de-penetration bias after its clamp. With cs = 1 the
+// product is exact, so K2 gives K1's (or K3's) bits.
 //
 // The arithmetic restates unitree_rl_gym_tpu_torch/physics/soa.py (itself
 // the port of the JAX package's physics/soa.py) for ONE env in plain C++:
@@ -437,10 +443,12 @@ struct UtrlContact {
     float jacobi[UTRL_NB];    // 1 / #active points on the body
 };
 
-template <bool HAS_GH>
+// HAS_CS: the de-penetration bias is scaled by the env's contact stiffness
+// cs after its clamp (the JAX package's order; cs = 1 leaves every bit)
+template <bool HAS_GH, bool HAS_CS>
 UTRL_HD void utrl_contact(const ModelTables& M, const UtrlKin& K,
                           const float L[][UTRL_NV], const float* rinv,
-                          float* vv, float fric, const float* gh,
+                          float* vv, float fric, const float* gh, float cs,
                           UtrlContact& C) {
     const float mu = 0.5f * (M.terrain_friction + fric);
     for (int b = 0; b < UTRL_NB; ++b) {
@@ -456,6 +464,7 @@ UTRL_HD void utrl_contact(const ModelTables& M, const UtrlKin& K,
             C.active[c] = phi > 0.0f;
             C.v_bias[c] = fminf(M.baumgarte * fmaxf(phi, 0.0f) / M.sim_dt,
                                 M.max_depenetration_velocity);
+            if (HAS_CS) C.v_bias[c] = C.v_bias[c] * cs;
             C.pn[c] = C.ptx[c] = C.pty[c] = 0.0f;
             n_active += C.active[c] ? 1.0f : 0.0f;
         }
@@ -510,11 +519,11 @@ UTRL_HD void utrl_contact(const ModelTables& M, const UtrlKin& K,
 // one substep and the whole control step of env n
 // ---------------------------------------------------------------------------
 
-template <bool HAS_GH>
+template <bool HAS_GH, bool HAS_CS>
 UTRL_HD void utrl_substep(const ModelTables& M, float* bp, float* bq, float* q,
                           float* v, const float* target, float fric,
-                          float mass_scale, const float* gh, float* tau,
-                          UtrlContact& C) {
+                          float mass_scale, const float* gh, float cs,
+                          float* tau, UtrlContact& C) {
     UtrlKin K;
     float vb[UTRL_NB][6], bias[UTRL_NV], L[UTRL_NV][UTRL_NV], rinv[UTRL_NV];
     float rhs[UTRL_NV];
@@ -540,7 +549,7 @@ UTRL_HD void utrl_substep(const ModelTables& M, float* bp, float* bq, float* q,
     utrl_chol_solve(M, L, rinv, rhs, vv);
     for (int k = 0; k < UTRL_NV; ++k) vv[k] = v[k] + M.sim_dt * vv[k];
 
-    utrl_contact<HAS_GH>(M, K, L, rinv, vv, fric, gh, C);
+    utrl_contact<HAS_GH, HAS_CS>(M, K, L, rinv, vv, fric, gh, cs, C);
 
     for (int j = 0; j < UTRL_NJ; ++j)
         vv[6 + j] = utrl_clip(vv[6 + j], -M.dof_vel_limit[j], M.dof_vel_limit[j]);
@@ -584,13 +593,14 @@ UTRL_HD void utrl_substep(const ModelTables& M, float* bp, float* bq, float* q,
 
 // Row n of every [N, k] operand in, row n of every [N, k] output out. With
 // HAS_GH, column n of gh_in [NCP, n_envs] in and of pxy_out [2*NCP, n_envs]
-// out (the JAX package's row layout: coalesced across a warp's envs).
-template <bool HAS_GH>
+// out (the JAX package's row layout: coalesced across a warp's envs). With
+// HAS_CS, element n of cstiff [n_envs] in, read once into a register.
+template <bool HAS_GH, bool HAS_CS>
 UTRL_HD void utrl_control_step_env(
     const ModelTables& M, int n, int n_envs,
     const float* bp_in, const float* bq_in, const float* q_in, const float* v_in,
     const float* target_in, const float* friction, const float* mass_scale,
-    const float* gh_in,
+    const float* gh_in, const float* cstiff,
     float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
     float* cf_out, float* rbp_out, float* rbv_out, float* pxy_out) {
     float bp[3], bq[4], q[UTRL_NJ], v[UTRL_NV], target[UTRL_NJ], tau[UTRL_NJ];
@@ -603,13 +613,15 @@ UTRL_HD void utrl_control_step_env(
     }
     for (int k = 0; k < UTRL_NV; ++k) v[k] = v_in[UTRL_NV * n + k];
     const float fric = friction[n], ms = mass_scale[n];
+    const float cs = HAS_CS ? cstiff[n] : 1.0f;
     float gh[HAS_GH ? UTRL_NCP : 1] = {0.0f};
     if (HAS_GH)
         for (int c = 0; c < UTRL_NCP; ++c) gh[c] = gh_in[c * n_envs + n];
 
     UtrlContact C;
     for (int s = 0; s < M.decimation; ++s)
-        utrl_substep<HAS_GH>(M, bp, bq, q, v, target, fric, ms, gh, tau, C);
+        utrl_substep<HAS_GH, HAS_CS>(M, bp, bq, q, v, target, fric, ms, gh,
+                                     cs, tau, C);
 
     // settled state: world kinematics, report bodies, contact forces
     UtrlKin K;
@@ -656,3 +668,30 @@ UTRL_HD void utrl_control_step_env(
     }
     for (int k = 0; k < UTRL_NV; ++k) v_out[UTRL_NV * n + k] = v[k];
 }
+
+#ifdef __CUDACC__
+// One thread per env; the instances are launched by control_step.cu (K1, K3)
+// and control_step_cs.cu (K2) in blocks of kUtrlThreads.
+static const int kUtrlThreads = 32;
+
+template <bool HAS_GH, bool HAS_CS>
+__global__ void __launch_bounds__(kUtrlThreads) utrl_control_step_kernel(
+    const ModelTables* __restrict__ M, int n_envs,
+    const float* __restrict__ bp, const float* __restrict__ bq,
+    const float* __restrict__ q, const float* __restrict__ v,
+    const float* __restrict__ target, const float* __restrict__ friction,
+    const float* __restrict__ mass_scale, const float* __restrict__ gh,
+    const float* __restrict__ cstiff,
+    float* __restrict__ bp_out, float* __restrict__ bq_out,
+    float* __restrict__ q_out, float* __restrict__ v_out,
+    float* __restrict__ tau_out, float* __restrict__ cf_out,
+    float* __restrict__ rbp_out, float* __restrict__ rbv_out,
+    float* __restrict__ pxy_out) {
+    const int n = blockIdx.x * blockDim.x + threadIdx.x;
+    if (n >= n_envs) return;
+    utrl_control_step_env<HAS_GH, HAS_CS>(
+        *M, n, n_envs, bp, bq, q, v, target, friction, mass_scale, gh, cstiff,
+        bp_out, bq_out, q_out, v_out, tau_out, cf_out, rbp_out, rbv_out,
+        pxy_out);
+}
+#endif  // __CUDACC__

@@ -1,26 +1,42 @@
-// Host build of the per-env body of kernels K1 and K3 (control_step.cuh),
-// for tests on machines without a GPU: g++ -O1 -shared -fPIC, loaded with
-// ctypes. It runs the same arithmetic as the CUDA kernels, one env after
-// another. Never a runtime path of the port.
+// Host build of the per-env body of kernels K1, K3 and K2
+// (control_step.cuh), for tests on machines without a GPU: g++ -O1 -shared
+// -fPIC, loaded with ctypes. It runs the same arithmetic as the CUDA
+// kernels, one env after another. Never a runtime path of the port.
 #include "control_step.cuh"
 
 extern "C" long long utrl_model_bytes(void) {
     return (long long)sizeof(ModelTables);
 }
 
+// The instance <HAS_GH, HAS_CS> over every env; gh and cstiff may be null
+// where the instance does not read them.
+template <bool HAS_GH, bool HAS_CS>
+static int run(const void* model, int n_envs, const float* bp, const float* bq,
+               const float* q, const float* v, const float* target,
+               const float* friction, const float* mass_scale, const float* gh,
+               const float* cstiff, float* bp_out, float* bq_out, float* q_out,
+               float* v_out, float* tau_out, float* cf_out, float* rbp_out,
+               float* rbv_out, float* pxy_out) {
+    const ModelTables& M = *(const ModelTables*)model;
+    for (int n = 0; n < n_envs; ++n)
+        utrl_control_step_env<HAS_GH, HAS_CS>(
+            M, n, n_envs, bp, bq, q, v, target, friction, mass_scale, gh,
+            cstiff, bp_out, bq_out, q_out, v_out, tau_out, cf_out, rbp_out,
+            rbv_out, pxy_out);
+    return 0;
+}
+
+// K1's body.
 extern "C" int utrl_control_step_host(
     const void* model, int n_envs,
     const float* bp, const float* bq, const float* q, const float* v,
     const float* target, const float* friction, const float* mass_scale,
     float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
     float* cf_out, float* rbp_out, float* rbv_out) {
-    const ModelTables& M = *(const ModelTables*)model;
-    for (int n = 0; n < n_envs; ++n)
-        utrl_control_step_env<false>(M, n, n_envs, bp, bq, q, v, target,
-                                     friction, mass_scale, nullptr, bp_out,
-                                     bq_out, q_out, v_out, tau_out, cf_out,
-                                     rbp_out, rbv_out, nullptr);
-    return 0;
+    return run<false, false>(model, n_envs, bp, bq, q, v, target, friction,
+                             mass_scale, nullptr, nullptr, bp_out, bq_out,
+                             q_out, v_out, tau_out, cf_out, rbp_out, rbv_out,
+                             nullptr);
 }
 
 // K3's body: gh [NCP, n_envs] in, pxy [2*NCP, n_envs] out.
@@ -31,11 +47,33 @@ extern "C" int utrl_control_step_terrain_host(
     const float* gh,
     float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
     float* cf_out, float* rbp_out, float* rbv_out, float* pxy_out) {
-    const ModelTables& M = *(const ModelTables*)model;
-    for (int n = 0; n < n_envs; ++n)
-        utrl_control_step_env<true>(M, n, n_envs, bp, bq, q, v, target,
-                                    friction, mass_scale, gh, bp_out, bq_out,
-                                    q_out, v_out, tau_out, cf_out, rbp_out,
-                                    rbv_out, pxy_out);
-    return 0;
+    return run<true, false>(model, n_envs, bp, bq, q, v, target, friction,
+                            mass_scale, gh, nullptr, bp_out, bq_out, q_out,
+                            v_out, tau_out, cf_out, rbp_out, rbv_out, pxy_out);
+}
+
+// K2's body on flat ground: cstiff [n_envs] in.
+extern "C" int utrl_control_step_cs_host(
+    const void* model, int n_envs,
+    const float* bp, const float* bq, const float* q, const float* v,
+    const float* target, const float* friction, const float* mass_scale,
+    const float* cstiff,
+    float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
+    float* cf_out, float* rbp_out, float* rbv_out) {
+    return run<false, true>(model, n_envs, bp, bq, q, v, target, friction,
+                            mass_scale, nullptr, cstiff, bp_out, bq_out, q_out,
+                            v_out, tau_out, cf_out, rbp_out, rbv_out, nullptr);
+}
+
+// K2's body on terrain: gh and cstiff in, pxy out.
+extern "C" int utrl_control_step_terrain_cs_host(
+    const void* model, int n_envs,
+    const float* bp, const float* bq, const float* q, const float* v,
+    const float* target, const float* friction, const float* mass_scale,
+    const float* gh, const float* cstiff,
+    float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
+    float* cf_out, float* rbp_out, float* rbv_out, float* pxy_out) {
+    return run<true, true>(model, n_envs, bp, bq, q, v, target, friction,
+                           mass_scale, gh, cstiff, bp_out, bq_out, q_out,
+                           v_out, tau_out, cf_out, rbp_out, rbv_out, pxy_out);
 }

@@ -18,13 +18,25 @@ per-env heightfield windows (``win``, re-centered by
 :meth:`LeggedEnv.refresh_terrain`). Envs reset since the last refresh
 stand on their spawn platform height until the next one.
 
+Domain randomisation drawn once per env in ``reset_all`` (never per
+episode, as the JAX package): the 64 friction buckets, the base mass, the
+contact stiffness ``cstiff`` (the control step's K2 operand), the PD-gain
+scale ``pd_gain`` and the one-step actuation delay ``act_delay``. A delayed
+env actuates the previous step's action (obs and rewards keep the commanded
+one); the gain scale is a target transform ``q + g (target - q)`` at the
+step-start ``q`` (``base_env.py:611-640`` of the JAX package).
+
+Tasks override the hooks of the JAX package's ``LeggedEnv``:
+``_reward_registry``, ``_noise_scale_vec``, ``_build_obs(ctx)``,
+``_extra_ctx``, ``_compute_target``, ``_check_termination``,
+``_init_task_state`` and ``_sample_reset(..., task_state)``
+(envs/go2_handstand.py).
+
 Randomness comes from one ``torch.Generator`` held by the env on its device
 and seeded from ``cfg.seed`` (``--seed``). It cannot reproduce the JAX
 package's PRNG draws; parity tests start both packages from one state
-(:meth:`EnvState.from_numpy`) with in-step randomness off.
-
-Not in this slice (raise ``NotImplementedError``): contact-stiffness DR,
-PD-gain DR and actuation-delay DR.
+(:meth:`EnvState.from_numpy`, which takes the DR draws too) with in-step
+randomness off.
 """
 
 from __future__ import annotations
@@ -77,9 +89,14 @@ class EnvState:
     win: Optional[torch.Tensor] = None
     win_corner: Optional[torch.Tensor] = None
     win_stale: Optional[torch.Tensor] = None
-
-    # fields of the JAX EnvState that belong to features not in this slice
-    _UNPORTED = ("task_state", "cstiff", "pd_gain", "act_delay")
+    # task-specific evolving state (None for base tasks; the handstand's
+    # live RSI probability, a 0-d tensor)
+    task_state: Optional[torch.Tensor] = None
+    # per-env DR fixed at reset_all (None when off): contact-stiffness scale
+    # [N], PD proportional-gain scale [N], one-step actuation delay [N] bool
+    cstiff: Optional[torch.Tensor] = None
+    pd_gain: Optional[torch.Tensor] = None
+    act_delay: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
@@ -89,11 +106,7 @@ class EnvState:
         """Build the port's state from the numpy leaves of a JAX ``EnvState``:
         ``d`` maps field names to arrays, with ``d["phys"]`` mapping
         ``base_pos``/``base_quat``/``joint_q``/``v``. The PRNG ``key`` is
-        ignored (the port draws from the env's generator); a leaf of a
-        feature this slice does not port raises."""
-        for name in cls._UNPORTED:
-            if d.get(name) is not None:
-                raise NotImplementedError(f"EnvState.{name} is not ported yet")
+        ignored (the port draws from the env's generator)."""
 
         def t(a):
             return torch.as_tensor(np.array(a), device=device)
@@ -115,12 +128,6 @@ class LeggedEnv:
         self.cfg = cfg
         self.device = resolve_device(device)
         dr = cfg.domain_rand
-        if dr.randomize_contact_stiffness:
-            raise NotImplementedError("contact-stiffness DR is not ported yet")
-        if dr.randomize_pd_gain:
-            raise NotImplementedError("pd_gain DR is not ported yet")
-        if dr.action_delay_prob > 0.0:
-            raise NotImplementedError("act_delay DR is not ported yet")
 
         contact_bodies = None
         if cfg.asset.prune_contact_bodies:
@@ -176,6 +183,10 @@ class LeggedEnv:
             np.asarray(mid - 0.5 * rng * soft, np.float32), device=dev)
         self.dof_pos_soft_hi = torch.as_tensor(
             np.asarray(mid + 0.5 * rng * soft, np.float32), device=dev)
+        self.dof_vel_limits = torch.as_tensor(
+            np.asarray(r.dof_velocity, np.float32), device=dev)
+        self.torque_limits = torch.as_tensor(
+            np.asarray(r.dof_effort, np.float32), device=dev)
 
         self.feet_indices = torch.as_tensor(
             r.body_indices([cfg.asset.foot_name]), device=dev)
@@ -212,13 +223,13 @@ class LeggedEnv:
         self.m_eff_t = m_eff_t.numpy().astype(np.float32)
 
         # reward machinery: prune zero scales, multiply by dt
-        self.reward_fns = R.BASE_REWARDS
+        self.reward_fns = self._reward_registry()
         self.reward_names, self.reward_scales = [], []
         for name, scale in cfg.rewards.scales.items():
             if scale == 0 or name == "termination":
                 continue
             if name not in self.reward_fns:
-                raise NotImplementedError(f"reward term '{name}' is not ported yet")
+                raise KeyError(f"no reward function for scale '{name}'")
             self.reward_names.append(name)
             self.reward_scales.append(scale * self.dt)
         self.termination_scale = cfg.rewards.scales.get("termination", 0.0) * self.dt
@@ -228,8 +239,11 @@ class LeggedEnv:
         self.noise_scale_vec = torch.as_tensor(self._noise_scale_vec(), device=dev)
 
     # ------------------------------------------------------------------
-    # pieces of the step
+    # overridable hooks (per-task subclasses)
     # ------------------------------------------------------------------
+
+    def _reward_registry(self):
+        return R.BASE_REWARDS
 
     def _noise_scale_vec(self) -> np.ndarray:
         """Base 48-dim noise layout (legged_robot.py:188-219)."""
@@ -254,21 +268,31 @@ class LeggedEnv:
         g = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand_as(quat[:, :3])
         return tm.quat_rotate_inverse(quat, g)
 
-    def _build_obs(self, phys, commands, actions):
-        """Base 48-dim observation (legged_robot.py:789-807)."""
+    def _build_obs(self, ctx):
+        """Base 48-dim observation (legged_robot.py:789-807); returns
+        (obs, privileged obs or None)."""
         osc = self.cfg.normalization.obs_scales
-        return torch.cat(
+        obs = torch.cat(
             (
-                phys.v[:, 3:6] * osc["lin_vel"],
-                phys.v[:, 0:3] * osc["ang_vel"],
-                self._projected_gravity(phys.base_quat),
-                commands[:, :3] * self.commands_scale,
-                (phys.joint_q - self.default_dof_pos) * osc["dof_pos"],
-                phys.v[:, 6:] * osc["dof_vel"],
-                actions,
+                ctx.base_lin_vel * osc["lin_vel"],
+                ctx.base_ang_vel * osc["ang_vel"],
+                ctx.projected_gravity,
+                ctx.commands[:, :3] * self.commands_scale,
+                (ctx.dof_pos - self.default_dof_pos) * osc["dof_pos"],
+                ctx.dof_vel * osc["dof_vel"],
+                ctx.actions,
             ),
             dim=-1,
         )
+        return obs, None
+
+    def _extra_ctx(self, ctx, state: EnvState):
+        """Attach task-specific fields to the reward/obs context."""
+        return ctx
+
+    def _init_task_state(self):
+        """Initial value of ``EnvState.task_state`` (None for base tasks)."""
+        return None
 
     def _compute_target(self, actions):
         """action -> PD position target (legged_robot.py:661-664)."""
@@ -338,10 +362,12 @@ class LeggedEnv:
                                   device=self.device),
         )
 
-    def _sample_reset(self, n, origins, vx_range=None):
+    def _sample_reset(self, n, origins, vx_range=None, task_state=None):
         """Fresh physics state + commands for ``n`` envs
         (legged_robot.py:557-594, 519-538). On terrain the base spawns at
-        its sub-terrain origin with +-1 m of xy jitter."""
+        its sub-terrain origin with +-1 m of xy jitter. ``task_state`` is
+        the live ``EnvState.task_state``, for tasks whose reset distribution
+        evolves over training (the handstand's RSI)."""
         nj = self.robot.num_dof
         dof_pos = self.default_dof_pos * self._rand(n, nj, lo=0.5, hi=1.5)
         base_vel = self._rand(n, 6, lo=-0.5, hi=0.5)
@@ -391,7 +417,9 @@ class LeggedEnv:
         cmd_vx_range = torch.tensor(
             self.cfg.commands.ranges["lin_vel_x"], dtype=torch.float32, device=dev)
         vx_range = cmd_vx_range if self.cfg.commands.curriculum else None
-        phys, commands = self._sample_reset(N, env_origin, vx_range)
+        task_state = self._init_task_state()
+        phys, commands = self._sample_reset(N, env_origin, vx_range,
+                                            task_state=task_state)
         if dr.randomize_friction:
             # 64 friction buckets (legged_robot.py:432-436)
             buckets = self._rand(64, lo=dr.friction_range[0], hi=dr.friction_range[1])
@@ -404,6 +432,16 @@ class LeggedEnv:
             mass_scale = 1.0 + added / self.robot.dyn.base_mass
         else:
             mass_scale = torch.ones((N,), device=dev)
+        # actuation-loop and contact DR, fixed per env for its lifetime
+        cstiff = pd_gain = act_delay = None
+        if dr.randomize_contact_stiffness:
+            lo, hi = dr.contact_stiffness_range
+            cstiff = self._rand(N, lo=lo, hi=hi)
+        if dr.randomize_pd_gain:
+            lo, hi = dr.pd_gain_range
+            pd_gain = self._rand(N, lo=lo, hi=hi)
+        if dr.action_delay_prob > 0.0:
+            act_delay = self._rand(N) < dr.action_delay_prob
         if init_at_random_ep_len:
             episode_length = torch.randint(
                 0, self.max_episode_length, (N,), generator=self.gen, device=dev
@@ -433,6 +471,10 @@ class LeggedEnv:
             obs=zeros(N, self.num_obs),
             priv_obs=zeros(N, self.num_privileged_obs) if self.num_privileged_obs else None,
             gh=self._reset_gh(phys.base_pos) if self.terrain is not None else None,
+            task_state=task_state,
+            cstiff=cstiff,
+            pd_gain=pd_gain,
+            act_delay=act_delay,
         )
         state = self.refresh_terrain(state)
         state, obs, *_ = self.step(state, zeros(N, self.num_actions))
@@ -452,13 +494,27 @@ class LeggedEnv:
         clip_a = cfg.normalization.clip_actions
         actions = torch.clamp(actions, -clip_a, clip_a)
 
-        # ---- physics: K1 (plane) or K3 (terrain) on CUDA tensors, the
-        #      plain version on CPU ----
-        target = self._compute_target(actions)
+        # ---- actuation-delay DR: delayed envs actuate the previous step's
+        #      action (state.actions still holds it); obs and rewards keep
+        #      the commanded one ----
+        phys_actions = actions
+        if state.act_delay is not None:
+            phys_actions = torch.where(state.act_delay[:, None], state.actions,
+                                       actions)
+        target = self._compute_target(phys_actions)
+        if state.pd_gain is not None:
+            # per-env proportional-gain scale as a target transform at the
+            # step-start q: kp ((q + g (t - q)) - q) = g kp (t - q)
+            q0 = state.phys.joint_q
+            target = q0 + state.pd_gain[:, None] * (target - q0)
+
+        # ---- physics: K1 (plane), K3 (terrain) or K2 (contact-stiffness
+        #      DR) on CUDA tensors, the plain version on CPU ----
         phys, aux = pback.control_step(
             self.robot.dyn, self.cparams, self.pd, cfg.sim.dt,
             cfg.control.decimation, state.phys, target, state.friction,
             state.mass_scale, self.m_eff_n, self.m_eff_t, state.gh,
+            cstiff=state.cstiff,
         )
         episode_length = state.episode_length + 1
         state = state.replace(phys=phys, actions=actions,
@@ -467,22 +523,36 @@ class LeggedEnv:
         base_quat = phys.base_quat
         ctx = types.SimpleNamespace(
             cfg=cfg,
+            num_envs=N,
             dt=self.dt,
+            base_pos=phys.base_pos,
+            base_quat=base_quat,
             rpy=tm.get_euler_xyz(base_quat),
             base_ang_vel=phys.v[:, 0:3],
             base_lin_vel=phys.v[:, 3:6],
+            projected_gravity=self._projected_gravity(base_quat),
             dof_pos=phys.joint_q,
             dof_vel=phys.v[:, 6:],
             last_dof_vel=state.last_dof_vel,
             torques=aux["torques"],
             contact_forces=aux["cf_rb"],
+            rb_pos_w=aux["rb_pos_w"],
+            rb_vel_w=aux["rb_vel_w"],
+            feet_pos=aux["rb_pos_w"][:, self.feet_indices, :],
+            feet_vel=aux["rb_vel_w"][:, self.feet_indices, :],
             actions=actions,
             last_actions=state.last_actions,
             episode_length=episode_length,
+            feet_indices=self.feet_indices,
             penalised_contact_indices=self.penalised_contact_indices,
+            default_dof_pos=self.default_dof_pos,
             dof_pos_soft_lo=self.dof_pos_soft_lo,
             dof_pos_soft_hi=self.dof_pos_soft_hi,
+            dof_vel_limits=self.dof_vel_limits,
+            torque_limits=self.torque_limits,
+            commands=state.commands,
         )
+        ctx = self._extra_ctx(ctx, state)
 
         # ---- command resample + heading controller (legged_robot.py:488-517)
         vx_range = state.cmd_vx_range if cfg.commands.curriculum else None
@@ -556,6 +626,7 @@ class LeggedEnv:
         reset_phys, reset_cmds = self._sample_reset(
             N, env_origin,
             vx_range=cmd_vx_range if cfg.commands.curriculum else None,
+            task_state=state.task_state,
         )
 
         def sel(new, old):
@@ -609,12 +680,13 @@ class LeggedEnv:
             ))
 
         # ---- observations (legged_robot.py:789-811) ----
-        obs = self._build_obs(state.phys, state.commands, state.actions)
+        obs, priv_obs = self._build_obs(self._obs_ctx(state, ctx))
         if cfg.noise.add_noise:
             obs = obs + (2.0 * self._rand(*obs.shape) - 1.0) * self.noise_scale_vec
         clip_o = cfg.normalization.clip_observations
         obs = torch.clamp(obs, -clip_o, clip_o)
-        priv_obs = None
+        if priv_obs is not None:
+            priv_obs = torch.clamp(priv_obs, -clip_o, clip_o)
 
         # ---- cache last_* (legged_robot.py:707-709) ----
         state = state.replace(
@@ -643,3 +715,21 @@ class LeggedEnv:
         if cfg.env.send_timeouts:
             extras["time_outs"] = time_out_buf
         return state, obs, priv_obs, rew, reset_buf, extras
+
+    def _obs_ctx(self, state: EnvState, ctx):
+        """The observation context: the reward context with the
+        post-reset, post-push state (the reference recomputes obs from
+        refreshed tensors)."""
+        phys = state.phys
+        new = types.SimpleNamespace(**vars(ctx))
+        new.base_pos = phys.base_pos
+        new.base_quat = phys.base_quat
+        new.base_ang_vel = phys.v[:, 0:3]
+        new.base_lin_vel = phys.v[:, 3:6]
+        new.projected_gravity = self._projected_gravity(phys.base_quat)
+        new.dof_pos = phys.joint_q
+        new.dof_vel = phys.v[:, 6:]
+        new.actions = state.actions
+        new.commands = state.commands
+        new.episode_length = state.episode_length
+        return new

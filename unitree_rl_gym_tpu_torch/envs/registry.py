@@ -1,9 +1,9 @@
 """Task registry (counterpart of ``unitree_rl_gym_tpu/envs/registry.py``):
 ``get_cfgs``, ``make_env``, ``get_task_class``, ``make_alg_runner``.
 
-This slice registers ``go2``. The JAX package's other tasks (the humanoids
-h1, h1_2, g1 with their LSTM policies, and go2_handstand) raise
-``NotImplementedError`` until their slices land."""
+This port registers ``go2`` and ``go2_handstand``. The JAX package's other
+tasks (the humanoids h1, h1_2, g1 with their LSTM policies) raise
+``NotImplementedError`` until their slice lands."""
 
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ _NOT_PORTED = {
     "h1": "the humanoids and the LSTM policy",
     "h1_2": "the humanoids and the LSTM policy",
     "g1": "the humanoids and the LSTM policy",
-    "go2_handstand": "the go2 handstand task",
 }
 
 
@@ -103,10 +102,16 @@ task_registry = TaskRegistry()
 
 
 def _register_all():
-    from unitree_rl_gym_tpu_torch.envs import go2
+    from unitree_rl_gym_tpu_torch.envs import go2, go2_handstand
 
     task_registry.register(
         "go2", LeggedEnv, go2.go2_rough_cfg, go2.go2_rough_train_cfg
+    )
+    task_registry.register(
+        "go2_handstand",
+        go2_handstand.GO2HandstandEnv,
+        go2_handstand.go2_handstand_cfg,
+        go2_handstand.go2_handstand_train_cfg,
     )
 
 

@@ -12,9 +12,11 @@ in ``dtype`` and the heads return float32.
 
 Weights come across from the JAX package by their Flax names
 (``params/{actor,critic}/Dense_i/{kernel,bias}`` and ``params/log_std``):
-from the exporter's ``policy_flat.npz`` (:func:`actor_critic_from_flat`) or
-from a live Flax param tree (:func:`actor_critic_from_params`). The
-recurrent policy is not ported yet.
+from the exporter's ``policy_flat.npz`` (:func:`actor_critic_from_flat`), or
+from a live Flax param tree (:func:`actor_critic_from_params`), or into an
+existing network, actor, critic and log-std, to seed a fine-tune
+(:func:`load_flat_params`, the counterpart of the JAX package's
+``export.load_flat_params``). The recurrent policy is not ported yet.
 """
 
 from __future__ import annotations
@@ -185,15 +187,42 @@ def actor_critic_from_flat(arrays: Dict[str, np.ndarray], meta: dict) -> ActorCr
         num_critic_obs=critic[0][0].shape[0] if critic else None,
         dtype=meta.get("dtype", "float32"),
     )
+    _copy_flat(net, actor, critic, arrays.get("params/log_std"))
+    return net
+
+
+def _copy_flat(net: ActorCritic, actor, critic, log_std):
+    """Copy Flax kernels [in, out] (transposed) and biases into ``net``'s
+    linears, and ``log_std`` where given; a shape that differs raises."""
     with torch.no_grad():
         for seq, dense in ((net.actor, actor), (net.critic, critic)):
             linears = [m for m in seq if isinstance(m, nn.Linear)]
             for lin, (k, b) in zip(linears, dense):
                 lin.weight.copy_(torch.tensor(k.T, dtype=torch.float32))
                 lin.bias.copy_(torch.tensor(b, dtype=torch.float32))
-        if "params/log_std" in arrays:
-            net.log_std.copy_(torch.tensor(arrays["params/log_std"],
-                                              dtype=torch.float32))
+        if log_std is not None:
+            net.log_std.copy_(torch.tensor(log_std, dtype=torch.float32))
+
+
+def load_flat_params(net: ActorCritic, path: str) -> ActorCritic:
+    """Load the full train params of a ``policy_flat.npz`` (``path`` is the
+    file or its directory) into ``net`` in place: actor, critic and log-std
+    by their Flax names, kernels transposed. Every layer of ``net`` must
+    find its array, with its shape; returns ``net``."""
+    f = path if path.endswith(".npz") else os.path.join(path, "policy_flat.npz")
+    with np.load(f) as z:
+        arrays = dict(z)
+    actor = _dense_stack(arrays, "actor")
+    critic = _dense_stack(arrays, "critic")
+    for head, dense in (("actor", actor), ("critic", critic)):
+        linears = [m for m in getattr(net, head) if isinstance(m, nn.Linear)]
+        shapes = [tuple(lin.weight.shape[::-1]) for lin in linears]
+        if [k.shape for k, _ in dense] != shapes:
+            raise ValueError(f"{f}: {head} kernels {[k.shape for k, _ in dense]} "
+                             f"do not fit the network's {shapes}")
+    if "params/log_std" not in arrays:
+        raise ValueError(f"{f} holds no params/log_std")
+    _copy_flat(net, actor, critic, arrays["params/log_std"])
     return net
 
 

@@ -5,20 +5,26 @@ Two implementations of the decimated control step:
 
   * ``soa``  — physics/soa.py over [N] tensors: the plain PyTorch version,
                the path of every CPU tensor;
-  * kernels K1 (flat ground) and K3 (terrain) — the hand-written CUDA
-               kernels (physics/cuda_step.py), the only path of a CUDA
-               tensor.
+  * kernels K1 (flat ground), K3 (terrain) and K2 (either, with the
+               per-env contact-stiffness scale ``cstiff``) — the
+               hand-written CUDA kernels (physics/cuda_step.py), the only
+               path of a CUDA tensor.
 
-``control_step`` picks one by the tensors' device, and nothing else: there is
-no probe and no fallback, so on a CUDA tensor it launches K1 (``gh`` None)
-or K3 (``gh`` given) or raises. chip_smoke.py calls ``control_step_soa``
-itself to hold the kernels against the plain version on the card.
+``control_step`` picks one by the tensors' device and the operands given,
+and nothing else: there is no probe and no fallback, so on a CUDA tensor it
+launches K1 (``gh`` and ``cstiff`` None), K3 (``gh`` given) or K2
+(``cstiff`` given, with or without ``gh``), or raises. chip_smoke.py
+calls ``control_step_soa`` itself to hold the kernels against the plain
+version on the card.
 
 Terrain follows the JAX package's kernel formulation on every device:
 ``gh`` [ncp,N] rows hold the ground height under every contact point at the
 start of the control step, frozen across its substeps. The JAX package's
 CPU path instead resamples the heightfield every substep (its
 ``ground_fn``); that mode is not ported.
+
+``cstiff`` [N] scales every env's contact de-penetration bias after its
+clamp to ``max_depenetration_velocity`` (the JAX package's order).
 
 Both return ``(PhysicsState, aux)`` with aux = {torques [N,nj],
 cf_rb [N,nrb,3], rb_pos_w [N,nrb,3], rb_vel_w [N,nrb,3]}, and with ``gh``
@@ -52,9 +58,9 @@ def soa_model_for(model: dyn.DynModel) -> soa.SoAModel:
 
 def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
                      friction, mass_scale, m_eff_n, m_eff_t, gh=None,
-                     want_phi=False):
-    """Batched SoA control step in plain PyTorch (``gh``: see the module
-    docstring).
+                     want_phi=False, cstiff=None):
+    """Batched SoA control step in plain PyTorch (``gh``, ``cstiff``: see
+    the module docstring).
 
     ``want_phi`` adds ``aux["min_abs_phi"]`` [N]: the smallest |penetration|
     of any contact point over the substeps, which tells a comparison with
@@ -76,6 +82,7 @@ def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
         bp, bq, q, v, tau, pn, pt, phi = soa.substep_s(
             m, cparams, kp, kd, lim, pd.clip_torque, sim_dt,
             bp, bq, q, v, tgt, friction, mass_scale, m_eff_n, m_eff_t, gh,
+            cstiff,
         )
         if want_phi:
             a = phi.abs().amin(dim=0)
@@ -103,18 +110,20 @@ def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
 
 
 def control_step(model, cparams, pd, sim_dt, decimation, state, target,
-                 friction, mass_scale, m_eff_n, m_eff_t, gh=None):
+                 friction, mass_scale, m_eff_n, m_eff_t, gh=None, cstiff=None):
     """The control step of every env: the plain version on a CPU tensor;
-    on any other, kernel K1 when ``gh`` is None and kernel K3 when it is
-    given (through their wrappers, which raise on anything they do not
-    take)."""
+    on any other, kernel K2 when ``cstiff`` is given (with or without
+    ``gh``), else K3 when ``gh`` is given and K1 when it is not (through
+    their wrappers, which raise on anything they do not take)."""
     if state.joint_q.device.type == "cpu":
         return control_step_soa(
             model, cparams, pd, sim_dt, decimation, state, target, friction,
-            mass_scale, m_eff_n, m_eff_t, gh,
+            mass_scale, m_eff_n, m_eff_t, gh, cstiff=cstiff,
         )
     args = (soa_model_for(model), cparams, pd, sim_dt, decimation, state,
             target, friction, mass_scale, m_eff_n, m_eff_t)
+    if cstiff is not None:
+        return cuda_step.control_step_cs(*args, cstiff, gh)
     if gh is None:
         return cuda_step.control_step(*args)
     return cuda_step.control_step_terrain(*args, gh)

@@ -1,28 +1,34 @@
-"""Kernels K1 and K3 — the decimated physics control step on flat ground
-(K1) and on heightfield terrain (K3) as hand-written CUDA kernels for Hopper
-(sm_90a): tables, build, binding, launch counts.
+"""Kernels K1, K3 and K2 — the decimated physics control step on flat
+ground (K1), on heightfield terrain (K3), and on either with a per-env
+contact stiffness (K2) as hand-written CUDA kernels for Hopper (sm_90a):
+tables, build, binding, launch counts.
 
 Replace the JAX package's Pallas TPU kernel
 (``unitree_rl_gym_tpu/physics/pallas_step.py::_kernel`` launched by
 ``control_step_pallas``): K1 its flat variant (``has_gh=False,
-has_cs=False``), K3 its terrain variant (``has_gh=True``). The per-env body
-is ``csrc/control_step.cuh`` (one thread per env, one template for both);
-the note at the top of ``csrc/control_step.cu`` says what bounds them on
-the H100 and what the design does about it; :func:`flops_per_env` and
-:func:`bytes_per_env` give the arithmetic behind that note.
+has_cs=False``), K3 its terrain variant (``has_gh=True``), K2 its
+contact-stiffness variant (``has_cs=True``, with or without ``has_gh``).
+The per-env body is ``csrc/control_step.cuh`` (one thread per env, one
+template, ``HAS_GH`` x ``HAS_CS``); the notes at the top of
+``csrc/control_step.cu`` (K1, K3) and ``csrc/control_step_cs.cu`` (K2) say
+what bounds them on the H100 and what the design does about it;
+:func:`flops_per_env` and :func:`bytes_per_env` give the arithmetic behind
+those notes.
 
-Build: ``nvcc -shared -Xcompiler -fPIC`` of ``csrc/control_step.cu`` into a
-shared library with a plain C interface, at first use, into
-``unitree_rl_gym_tpu_torch/_build/<hash>/`` (keyed on the sources and the
-flags, git-ignored); loaded with ``ctypes``. No PyTorch headers are
-compiled, so the build takes seconds. The model's sizes are compile-time
-constants (``-DUTRL_NB/NCP/NRB``); its numbers travel as a
+Build: ``nvcc -shared -Xcompiler -fPIC`` of each source of
+:data:`LIBRARIES` into a shared library with a plain C interface, at first
+use, into ``unitree_rl_gym_tpu_torch/_build/<hash>/`` (keyed on the source,
+the header and the flags, git-ignored); loaded with ``ctypes``. No PyTorch
+headers are compiled, so a build takes seconds; :func:`build_all` starts
+every build of a list of models at once. The model's sizes are
+compile-time constants (``-DUTRL_NB/NCP/NRB``); its numbers travel as a
 :func:`model_tables` byte buffer on the device.
 
-:func:`control_step` (K1) and :func:`control_step_terrain` (K3) are the
-wrappers: each launches its kernel on CUDA tensors and raises on anything
-else (``backend.control_step`` sends CPU tensors to the plain version).
-``LAUNCHES`` counts K1's launches, ``LAUNCHES_TERRAIN`` K3's.
+:func:`control_step` (K1), :func:`control_step_terrain` (K3) and
+:func:`control_step_cs` (K2) are the wrappers: each launches its kernel on
+CUDA tensors and raises on anything else (``backend.control_step`` sends
+CPU tensors to the plain version). ``LAUNCHES`` counts K1's launches,
+``LAUNCHES_TERRAIN`` K3's and ``LAUNCHES_CS`` K2's.
 """
 
 from __future__ import annotations
@@ -44,7 +50,12 @@ from unitree_rl_gym_tpu_torch.physics import soa
 
 CSRC_DIR = os.path.join(UNITREE_RL_GYM_TPU_TORCH_DIR, "csrc")
 BUILD_DIR = os.path.join(UNITREE_RL_GYM_TPU_TORCH_DIR, "_build")
-SOURCES = ("control_step.cu", "control_step.cuh")
+HEADER = "control_step.cuh"
+# library name -> its source (each built into its own shared library)
+LIBRARIES = {
+    "control_step": "control_step.cu",        # K1, K3
+    "control_step_cs": "control_step_cs.cu",  # K2
+}
 # -fmad=false: no multiply-add contraction, so the kernels round every
 # product and sum as the plain version's separate torch ops do (the contact
 # solve amplifies last-bit differences into visible velocity errors)
@@ -57,10 +68,11 @@ NVCC_FLAGS = (
 # each path it drives to show that the path went through the kernel)
 LAUNCHES = 0            # K1
 LAUNCHES_TERRAIN = 0    # K3
+LAUNCHES_CS = 0         # K2 (flat and terrain)
 # nvcc's stderr (ptxas register / spill report) of each build, by library
 BUILD_LOGS: Dict[str, str] = {}
 
-_LIBS: Dict[tuple, ctypes.CDLL] = {}   # by (flags, sizes)
+_LIBS: Dict[tuple, ctypes.CDLL] = {}   # by (library, flags, sizes)
 _TABLES: Dict[tuple, tuple] = {}
 _LOCK = threading.Lock()
 
@@ -139,13 +151,14 @@ def model_tables(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
 
 
 def flops_per_env(m: soa.SoAModel, decimation: int, iterations: int,
-                  terrain: bool = False) -> int:
+                  terrain: bool = False, cs: bool = False) -> int:
     """Floating-point operations of one env's control step in the kernel
     body, counted from csrc/control_step.cuh (add, sub, mul, div, min, max,
     sqrt, sin, cos, tanh each count 1; a 3x3 mat-vec is 15, a 3x3 product
     45, a cross product 9, a spatial transform 42). ``terrain`` counts K3:
     one add per point and substep for the ground height, and the end-of-step
-    point xy (2 x 6 per point)."""
+    point xy (2 x 6 per point). ``cs`` counts K2: one multiply per point and
+    substep for the contact stiffness."""
     nb, nj, nv, ncp, nrb = m.nb, m.nj, m.nv, m.ncp, m.nrb
     depth = 0  # sum over joints of their chain length to the base (CRBA)
     for i in range(1, nb):
@@ -168,14 +181,19 @@ def flops_per_env(m: soa.SoAModel, decimation: int, iterations: int,
     if terrain:
         substep += ncp
         post += 12 * ncp
+    if cs:
+        substep += ncp
     return decimation * substep + post
 
 
-def bytes_per_env(m: soa.SoAModel, terrain: bool = False) -> int:
+def bytes_per_env(m: soa.SoAModel, terrain: bool = False,
+                  cs: bool = False) -> int:
     """Bytes one env must move: each fp32 input read once, each output
     written once (the model tables are shared by all envs). ``terrain``
-    counts K3: gh [ncp] in, p_xy [2*ncp] out."""
-    n_in = 3 + 4 + m.nj + m.nv + m.nj + 1 + 1 + (m.ncp if terrain else 0)
+    counts K3: gh [ncp] in, p_xy [2*ncp] out; ``cs`` counts K2's contact
+    stiffness, one float in."""
+    n_in = (3 + 4 + m.nj + m.nv + m.nj + 1 + 1 + (m.ncp if terrain else 0)
+            + (1 if cs else 0))
     n_out = (3 + 4 + m.nj + m.nv + m.nj + 3 * 3 * m.nrb
              + (2 * m.ncp if terrain else 0))
     return 4 * (n_in + n_out)
@@ -197,26 +215,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def library_path(m: soa.SoAModel) -> str:
-    """Where the build of this model's sizes lives (hash of sources + flags)."""
+def library_path(m: soa.SoAModel, library: str = "control_step") -> str:
+    """Where the build of ``library`` for this model's sizes lives (hash of
+    its source, the header and the flags)."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in (LIBRARIES[library], HEADER):
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS + size_defines(m)).encode())
-    return os.path.join(BUILD_DIR, h.hexdigest()[:16], "libcontrol_step.so")
+    return os.path.join(BUILD_DIR, h.hexdigest()[:16], f"lib{library}.so")
 
 
-def build(m: soa.SoAModel) -> str:
-    """Compile the kernel for this model's sizes unless a build with the same
-    sources and flags exists; returns the library path."""
-    path = library_path(m)
+def build(m: soa.SoAModel, library: str = "control_step") -> str:
+    """Compile ``library`` for this model's sizes unless a build with the
+    same sources and flags exists; returns the library path."""
+    path = library_path(m, library)
     if os.path.exists(path):
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, *size_defines(m), "-I", CSRC_DIR,
-           "-o", tmp, os.path.join(CSRC_DIR, "control_step.cu")]
+           "-o", tmp, os.path.join(CSRC_DIR, LIBRARIES[library])]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(
@@ -227,27 +246,57 @@ def build(m: soa.SoAModel) -> str:
     return path
 
 
-def _library(m: soa.SoAModel) -> ctypes.CDLL:
-    """The loaded library for this model's sizes; built (or found by the
+def build_all(models) -> Dict[tuple, str]:
+    """Build every library of :data:`LIBRARIES` for every SoAModel of
+    ``models``, all nvcc processes started together; returns
+    {(library, sizes): path}. A failed build raises."""
+    jobs = {(lib, size_defines(m)): (m, lib) for m in models for lib in LIBRARIES}
+    out, errors = {}, []
+
+    def one(key):
+        try:
+            out[key] = build(*jobs[key])
+        except Exception as e:  # re-raised below, after every build ended
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(k,)) for k in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+# ctypes argument counts of each entry point: tables, n_envs, the operand
+# and output pointers, the stream
+_ENTRY_POINTS = {
+    "control_step": {"utrl_control_step": 16,
+                     "utrl_control_step_terrain": 18},
+    "control_step_cs": {"utrl_control_step_cs": 17,
+                        "utrl_control_step_terrain_cs": 19},
+}
+
+
+def _library(m: soa.SoAModel, library: str = "control_step") -> ctypes.CDLL:
+    """The loaded ``library`` for this model's sizes; built (or found by the
     hash of its sources) once per process, not hashed again per launch."""
-    key = (NVCC_FLAGS, size_defines(m))
+    key = (library, NVCC_FLAGS, size_defines(m))
     lib = _LIBS.get(key)
     if lib is not None:
         return lib
     with _LOCK:
         lib = _LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(build(m))
+            lib = ctypes.CDLL(build(m, library))
             lib.utrl_model_bytes.restype = ctypes.c_longlong
             lib.utrl_model_bytes.argtypes = []
-            lib.utrl_control_step.restype = ctypes.c_int
-            lib.utrl_control_step.argtypes = (
-                [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16
-            )
-            lib.utrl_control_step_terrain.restype = ctypes.c_int
-            lib.utrl_control_step_terrain.argtypes = (
-                [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 18
-            )
+            for name, n_ptr in _ENTRY_POINTS[library].items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                               + [ctypes.c_void_p] * n_ptr)
             _LIBS[key] = lib
     return lib
 
@@ -288,9 +337,10 @@ def _check(name, t, shape, device):
 
 
 def _launch(m, cparams, pd, sim_dt, decimation, state, target, friction,
-            mass_scale, m_eff_n, m_eff_t, gh, name):
-    """Check the operands, allocate the outputs and launch K1 (``gh`` None)
-    or K3 on the current stream. Returns (PhysicsState, aux)."""
+            mass_scale, m_eff_n, m_eff_t, gh, cstiff, name):
+    """Check the operands, allocate the outputs and launch K1 (``gh`` and
+    ``cstiff`` None), K3 (``gh``) or K2 (``cstiff``, with or without
+    ``gh``) on the current stream. Returns (PhysicsState, aux)."""
     dev = state.joint_q.device
     if dev.type != "cuda":
         raise ValueError(f"kernel {name} runs on CUDA tensors, got {dev}")
@@ -307,9 +357,11 @@ def _launch(m, cparams, pd, sim_dt, decimation, state, target, friction,
     ]
     if gh is not None:
         inputs.append(("gh", gh, (ncp, N)))
+    if cstiff is not None:
+        inputs.append(("cstiff", cstiff, (N,)))
     for arg, t, shape in inputs:
         _check(arg, t, shape, dev)
-    lib = _library(m)
+    lib = _library(m, "control_step" if cstiff is None else "control_step_cs")
     tables = _device_tables(lib, m, cparams, pd, sim_dt, decimation, m_eff_n,
                             m_eff_t, dev)
 
@@ -323,7 +375,8 @@ def _launch(m, cparams, pd, sim_dt, decimation, state, target, friction,
     )
     if gh is not None:
         out["p_xy"] = empty(2 * ncp, N)
-    fn = lib.utrl_control_step if gh is None else lib.utrl_control_step_terrain
+    fn = getattr(lib, "utrl_control_step" + ("_terrain" if gh is not None else "")
+                 + ("_cs" if cstiff is not None else ""))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -348,7 +401,7 @@ def control_step(m: soa.SoAModel, cparams, pd, sim_dt, decimation, state,
     that is not on CUDA or that the kernel does not take. Returns
     (PhysicsState, aux) like ``backend.control_step_soa``."""
     res = _launch(m, cparams, pd, sim_dt, decimation, state, target, friction,
-                  mass_scale, m_eff_n, m_eff_t, None, "K1")
+                  mass_scale, m_eff_n, m_eff_t, None, None, "K1")
     global LAUNCHES
     LAUNCHES += 1
     return res
@@ -361,7 +414,20 @@ def control_step_terrain(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
     (frozen across the substeps); aux gains ``p_xy`` [2*ncp, N], the
     end-of-step world x and y rows of every point. Raises like K1's."""
     res = _launch(m, cparams, pd, sim_dt, decimation, state, target, friction,
-                  mass_scale, m_eff_n, m_eff_t, gh, "K3")
+                  mass_scale, m_eff_n, m_eff_t, gh, None, "K3")
     global LAUNCHES_TERRAIN
     LAUNCHES_TERRAIN += 1
+    return res
+
+
+def control_step_cs(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
+                    state, target, friction, mass_scale, m_eff_n, m_eff_t,
+                    cstiff, gh=None):
+    """K2's wrapper: K1 (``gh`` None) or K3 (``gh`` [ncp, N]) with every
+    env's contact de-penetration bias scaled by ``cstiff`` [N] after its
+    clamp. Raises like K1's."""
+    res = _launch(m, cparams, pd, sim_dt, decimation, state, target, friction,
+                  mass_scale, m_eff_n, m_eff_t, gh, cstiff, "K2")
+    global LAUNCHES_CS
+    LAUNCHES_CS += 1
     return res

@@ -640,11 +640,14 @@ def point_world_positions_s(m: SoAModel, R_w, p_w, like):
 
 def contact_solve_s(m: SoAModel, params, E_up, R_w, p_w, chol,
                     v: List[Scalar], m_eff_n: np.ndarray, m_eff_t: np.ndarray,
-                    friction_env, dt: float, gh_frozen=None):
+                    friction_env, dt: float, gh_frozen=None, cstiff=None):
     """PGS impulse solve (the JAX package's ``contact_solve_s`` without the
-    stiffness operand and the per-substep ``ground_fn``). ``gh_frozen``
-    [ncp,N] holds the ground height under every point, frozen across the
-    control step's substeps; None is the z=0 plane.
+    per-substep ``ground_fn``). ``gh_frozen`` [ncp,N] holds the ground
+    height under every point, frozen across the control step's substeps;
+    None is the z=0 plane. ``cstiff`` [N] is the per-env contact-stiffness
+    scale of the de-penetration bias, applied after its clamp to
+    ``max_depenetration_velocity`` (the JAX order, so a stiff env may
+    exceed that cap); None leaves the bias as it is.
     Returns (v_new [nv], pn [ncp,N], (ptx, pty), phi [ncp,N])."""
     L, rinv, pos = chol
     like = next(x for x in v if not _is_const(x))
@@ -665,6 +668,8 @@ def contact_solve_s(m: SoAModel, params, E_up, R_w, p_w, chol,
         params.baumgarte * torch.clamp(phi, min=0.0) / dt,
         max=params.max_depenetration_velocity,
     )
+    if cstiff is not None:
+        v_bias = v_bias * cstiff[None]
 
     # block-Jacobi scaling: 1 / #active points on the same dyn body
     n_active = _scatter_sum(m, activef)
@@ -737,10 +742,11 @@ def contact_solve_s(m: SoAModel, params, E_up, R_w, p_w, chol,
 
 def substep_s(m, params, pd_kp, pd_kd, pd_lim, clip_torque, sim_dt,
               bp, bq, q, v, target, friction_env, mass_scale,
-              m_eff_n, m_eff_t, gh_frozen=None):
+              m_eff_n, m_eff_t, gh_frozen=None, cstiff=None):
     """One physics substep. All args/returns are scalar lists / tuples of
     [N] tensors; ``gh_frozen`` [ncp,N] is the ground height under every
-    point (None: the z=0 plane). Returns (bp, bq, q, v, tau, pn,
+    point (None: the z=0 plane), ``cstiff`` [N] the contact-stiffness scale
+    (None: 1). Returns (bp, bq, q, v, tau, pn,
     (ptx, pty), phi)."""
     R_w, p_w, E_up, v_b = fk_s(m, bp, bq, q, v)
 
@@ -771,7 +777,7 @@ def substep_s(m, params, pd_kp, pd_kd, pd_lim, clip_torque, sim_dt,
 
     v_new, pn, pt, phi = contact_solve_s(
         m, params, E_up, R_w, p_w, chol, v_free, m_eff_n, m_eff_t,
-        friction_env, sim_dt, gh_frozen,
+        friction_env, sim_dt, gh_frozen, cstiff,
     )
 
     # PhysX-parity joint velocity clamp and base velocity caps

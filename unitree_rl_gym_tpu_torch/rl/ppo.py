@@ -14,18 +14,29 @@ ppo.py``), the rsl_rl v1.0.2 contract:
     ``desired_kl``, held in [1e-5, 1e-2]), then ``torch.optim.Adam``
     (betas 0.9/0.999, eps 1e-8) at that rate — the order of the JAX
     package's ``_apply_step``;
-  * one permutation of the T*N samples per update, reused by every epoch.
+  * one permutation of the T*N samples per update, reused by every epoch;
+  * the task knobs of ``AlgorithmCfg`` (the JAX ``PPO._loss`` and
+    ``_apply_step``): class re-weighting (``class_target_frac``: one-sided,
+    capped at ``class_weight_cap``, mean-one weights on the surrogate,
+    value and entropy means), the anchor KL (``anchor_kl_coef``:
+    KL(anchor || pi) of a frozen copy of the policy, set by
+    :meth:`PPO.set_anchor`, under the task's anchor mask, with its own
+    mean), and ``nan_guard`` (a minibatch whose loss, gradient norm or KL
+    is not finite changes neither the parameters, nor Adam's moments and
+    step count, nor the learning rate; it is counted and its stats are
+    zeroed). The adaptive rate's KL stays unweighted.
 
 The learning rate lives on the host, so each minibatch step reads its KL
-back from the device (one synchronisation per minibatch, 20 per update at
-the defaults). The recurrent update, ``nan_guard``, the class weights and
-the anchor KL are not ported yet; a config that asks for them raises.
+(and, with ``nan_guard``, its finiteness) back from the device: one
+synchronisation per minibatch, 20 per update at the defaults. The
+recurrent update is not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import time
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -56,16 +67,17 @@ def _sync(device):
 
 class PPO:
     """The algorithm: network, optimizer, adaptive learning rate and the
-    generator of its action noise and minibatch permutation."""
+    generator of its action noise and minibatch permutation.
+
+    ``state_class_fn`` (obs -> [B] in {0, 1}: the task-critical states, e.g.
+    ``GO2HandstandEnv.ppo_state_class_fn``) drives the class re-weighting
+    and, unless ``anchor_mask_fn`` is given, the anchor-KL mask; both
+    features are off when it is None."""
 
     def __init__(self, net: nets.ActorCritic, cfg: AlgorithmCfg, num_steps: int,
                  num_envs: int, device, share_critic_obs: bool = False,
-                 seed: int = 0):
-        if cfg.nan_guard:
-            raise NotImplementedError("AlgorithmCfg.nan_guard is not ported yet")
-        if cfg.class_target_frac > 0.0 or cfg.anchor_kl_coef > 0.0:
-            raise NotImplementedError(
-                "class weights and the anchor KL are not ported yet")
+                 seed: int = 0, state_class_fn: Optional[Callable] = None,
+                 anchor_mask_fn: Optional[Callable] = None):
         self.net = net
         self.cfg = cfg
         self.num_steps = num_steps
@@ -79,6 +91,19 @@ class PPO:
             net.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
+        self.state_class_fn = state_class_fn
+        self.anchor_mask_fn = anchor_mask_fn
+        # frozen copy of the policy for the anchor KL (set_anchor)
+        self.anchor: Optional[nets.ActorCritic] = None
+
+    def set_anchor(self, state_dict=None):
+        """Freeze a copy of the network as the anchor of
+        ``AlgorithmCfg.anchor_kl_coef``: the current parameters, or
+        ``state_dict`` (the network's own keys) when given."""
+        anchor = copy.deepcopy(self.net)
+        if state_dict is not None:
+            anchor.load_state_dict(state_dict)
+        self.anchor = anchor.requires_grad_(False)
 
     # ------------------------------------------------------------------
     # rollout
@@ -170,40 +195,85 @@ class PPO:
     # update
     # ------------------------------------------------------------------
 
+    def _class_weights(self, obs):
+        """Mean-one per-sample weights of the one-sided class re-weighting:
+        when the class-1 share of the minibatch is below
+        ``class_target_frac``, class 1 is weighted up to restore it (capped
+        at ``class_weight_cap``) and class 0 down; else all weights are 1."""
+        cfg = self.cfg
+        c = self.state_class_fn(obs).to(torch.float32).detach()
+        frac = torch.mean(c)
+        tau = cfg.class_target_frac
+        low = frac < tau
+        w1 = torch.where(low, torch.clamp(tau / (frac + 1e-6),
+                                          max=cfg.class_weight_cap), 1.0)
+        w0 = torch.where(low, (1.0 - tau) / (1.0 - frac + 1e-6), 1.0)
+        w = c * w1 + (1.0 - c) * w0
+        return w / torch.mean(w)
+
     def loss(self, b: Batch):
         """PPO loss on a minibatch [B, ...]; returns (loss, (surrogate,
-        value loss, kl)) with the KL detached."""
+        value loss, kl, anchor loss)) with the stats detached (the anchor
+        loss is 0 where the anchor KL is off)."""
         cfg = self.cfg
         mu, std, value = self.net(b.obs, b.critic_obs)
+        if self.state_class_fn is not None and cfg.class_target_frac > 0.0:
+            w = self._class_weights(b.obs)
+
+            def wmean(x):
+                return torch.mean(w * x)
+        else:
+            wmean = torch.mean
         logp = nets.log_prob(mu, std, b.actions)
         ratio = torch.exp(logp - b.log_probs)
         surr = -b.advantages * ratio
         surr_clipped = -b.advantages * torch.clamp(
             ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param)
-        surrogate_loss = torch.mean(torch.maximum(surr, surr_clipped))
+        surrogate_loss = wmean(torch.maximum(surr, surr_clipped))
         if cfg.use_clipped_value_loss:
             v_clipped = b.values + torch.clamp(
                 value - b.values, -cfg.clip_param, cfg.clip_param)
-            value_loss = torch.mean(torch.maximum(
+            value_loss = wmean(torch.maximum(
                 torch.square(value - b.returns),
                 torch.square(v_clipped - b.returns)))
         else:
-            value_loss = torch.mean(torch.square(value - b.returns))
-        ent = torch.mean(nets.entropy(std))
+            value_loss = wmean(torch.square(value - b.returns))
+        ent = wmean(nets.entropy(std))
         loss = (surrogate_loss + cfg.value_loss_coef * value_loss
                 - cfg.entropy_coef * ent)
+        anchor_loss = torch.zeros((), device=mu.device)
+        if (cfg.anchor_kl_coef > 0.0 and self.anchor is not None
+                and self.state_class_fn is not None):
+            # KL(anchor || pi) on the states the anchor mask protects,
+            # with its own masked mean
+            with torch.no_grad(), torch.profiler.record_function(
+                    "ppo_anchor_forward"):
+                a_mu = self.anchor.act(b.obs)
+                a_std = torch.exp(self.anchor.log_std).expand_as(a_mu)
+            akl = nets.kl_divergence(a_mu, a_std, mu, std)
+            mask_fn = self.anchor_mask_fn or self.state_class_fn
+            mask = mask_fn(b.obs).to(akl.dtype).detach()
+            anchor_loss = torch.sum(mask * akl) / (torch.sum(mask) + 1e-6)
+            loss = loss + cfg.anchor_kl_coef * anchor_loss
+        # the adaptive rate's KL stays unweighted (rsl_rl's schedule)
         kl = torch.mean(nets.kl_divergence(b.mu, b.std, mu, std)).detach()
-        return loss, (surrogate_loss.detach(), value_loss.detach(), kl)
+        return loss, (surrogate_loss.detach(), value_loss.detach(), kl,
+                      anchor_loss.detach())
 
-    def _clip_grads(self):
-        """optax.clip_by_global_norm on the .grad of every parameter."""
+    def _grad_norm(self):
+        """Global norm of the .grad of every parameter (optax.global_norm)."""
         grads = [p.grad for p in self.net.parameters() if p.grad is not None]
-        norm = torch.linalg.vector_norm(
+        return torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+
+    def _clip_grads(self, norm=None):
+        """optax.clip_by_global_norm on the .grad of every parameter."""
+        norm = self._grad_norm() if norm is None else norm
         max_norm = self.cfg.max_grad_norm
         scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
-        for g in grads:
-            g.mul_(scale)
+        for p in self.net.parameters():
+            if p.grad is not None:
+                p.grad.mul_(scale)
 
     def _adapt_lr(self, lr: float, kl: float) -> float:
         """rsl_rl's adaptive schedule in float32: x1.5 toward desired_kl,
@@ -218,10 +288,11 @@ class PPO:
             lr32 = min(lr32 * np.float32(1.5), np.float32(1e-2))
         return float(lr32)
 
-    def apply_step(self, kl: float):
+    def apply_step(self, kl: float, norm=None):
         """The JAX package's ``_apply_step`` on the gradients in ``.grad``:
-        global-norm clip, the learning rate adapted to ``kl``, Adam."""
-        self._clip_grads()
+        global-norm clip (by ``norm`` when the caller has it), the learning
+        rate adapted to ``kl``, Adam."""
+        self._clip_grads(norm)
         self.lr = self._adapt_lr(self.lr, kl)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr
@@ -229,12 +300,27 @@ class PPO:
 
     def minibatch_step(self, b: Batch):
         """One optimizer application: loss, gradient, :meth:`apply_step`.
-        Returns (surrogate, value loss, kl)."""
-        loss, (sl, vl, kl) = self.loss(b)
+        Returns ((surrogate, value loss, kl, anchor loss), skipped). With
+        ``nan_guard`` a minibatch whose loss, gradient norm or KL is not
+        finite is skipped before the optimizer: parameters, Adam's moments
+        and step count, and the learning rate keep their values, and its
+        stats come back as zeros with ``skipped`` True."""
+        loss, stats = self.loss(b)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        self.apply_step(float(kl))
-        return sl, vl, kl
+        norm = self._grad_norm()
+        kl = stats[2]
+        if self.cfg.nan_guard:
+            ok = (torch.isfinite(loss.detach()) & torch.isfinite(norm)
+                  & torch.isfinite(kl))
+            kl_h, ok_h = torch.stack((kl, ok.to(kl.dtype))).tolist()
+            if not ok_h:
+                self.optimizer.zero_grad(set_to_none=True)
+                return tuple(torch.zeros_like(x) for x in stats), True
+        else:
+            kl_h = float(kl)
+        self.apply_step(kl_h, norm)
+        return stats, False
 
     def update(self, transitions: Batch, advantages, returns):
         """num_learning_epochs x num_mini_batches PPO steps over one
@@ -249,19 +335,23 @@ class PPO:
         ))
         nmb = cfg.num_mini_batches
         mb = (T * N) // nmb
-        stats = torch.zeros(3, device=self.device)
+        stats = torch.zeros(4, device=self.device)
+        skipped = 0
         for _ in range(cfg.num_learning_epochs):
             for i in range(nmb):
                 b = Batch(*(None if x is None else x[i * mb:(i + 1) * mb]
                             for x in flat))
-                stats += torch.stack(self.minibatch_step(b))
-        n = cfg.num_learning_epochs * nmb
+                step_stats, was_skipped = self.minibatch_step(b)
+                stats += torch.stack(step_stats)
+                skipped += int(was_skipped)
+        n_applied = max(cfg.num_learning_epochs * nmb - skipped, 1)
         return {
-            "surrogate_loss": stats[0] / n,
-            "value_loss": stats[1] / n,
-            "kl": stats[2] / n,
+            "surrogate_loss": stats[0] / n_applied,
+            "value_loss": stats[1] / n_applied,
+            "kl": stats[2] / n_applied,
+            "anchor_loss": stats[3] / n_applied,
             "lr": self.lr,
-            "nonfinite_steps": 0.0,
+            "nonfinite_steps": float(skipped),
         }
 
     # ------------------------------------------------------------------

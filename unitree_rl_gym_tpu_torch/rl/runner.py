@@ -4,9 +4,13 @@
     runner = OnPolicyRunner(env, train_cfg, log_dir)
     runner.learn(num_learning_iterations, init_at_random_ep_len=True)
     runner.save(path) / runner.load(path)
+    runner.set_anchor()      # freeze the policy for the anchor KL
     policy = runner.get_inference_policy()
 
-It runs on the env's device. Checkpoints are the port's own format:
+It runs on the env's device. The env's ``ppo_state_class_fn`` and
+``ppo_anchor_mask_fn``, where it has them, go to PPO's class re-weighting
+and anchor KL (the JAX runner's ``state_class_fn`` / ``anchor_mask_fn``).
+The anchor is not part of a checkpoint, as in the JAX package. Checkpoints are the port's own format:
 ``model_<iteration>.pt`` (``torch.save`` of the network and optimizer state
 dicts, the learning rate, the iteration and the state of the PPO generator)
 every ``save_interval`` iterations and at the end, each with the JSON meta
@@ -50,6 +54,10 @@ class OnPolicyRunner:
             num_envs=env.num_envs, device=self.device,
             share_critic_obs=env.num_privileged_obs is None,
             seed=train_cfg.seed,
+            # the task's critical-state classifier and anchor mask drive the
+            # class re-weighting and the anchor KL (GO2HandstandEnv)
+            state_class_fn=getattr(env, "ppo_state_class_fn", None),
+            anchor_mask_fn=getattr(env, "ppo_anchor_mask_fn", None),
         )
         self._env_state = None
         self._obs = None
@@ -105,7 +113,9 @@ class OnPolicyRunner:
         print(
             f"it {it:5d} | {fps:9.0f} steps/s | rew {metrics['mean_step_reward']:.4f} | "
             f"ep_len {mean_ep_len:7.1f} | vloss {metrics['value_loss']:.4f} | "
-            f"kl {metrics['kl']:.4f} | lr {metrics['lr']:.2e}",
+            f"kl {metrics['kl']:.4f} | lr {metrics['lr']:.2e} | "
+            f"anchor {metrics['anchor_loss']:.4f} | "
+            f"skipped {metrics['nonfinite_steps']:.0f}",
             flush=True,
         )
         row = {
@@ -116,6 +126,7 @@ class OnPolicyRunner:
             "surrogate_loss": metrics["surrogate_loss"],
             "kl": metrics["kl"],
             "lr": metrics["lr"],
+            "anchor_loss": metrics["anchor_loss"],
             "nonfinite_steps": metrics["nonfinite_steps"],
             "fps": fps,
             "iteration_s": dt_wall,
@@ -164,6 +175,12 @@ class OnPolicyRunner:
         return payload
 
     # ------------------------------------------------------------------
+
+    def set_anchor(self, params=None):
+        """Freeze a copy of the policy as the anchor of
+        ``AlgorithmCfg.anchor_kl_coef``: the current parameters by default,
+        or ``params``, a state dict of the runner's network."""
+        self.alg.set_anchor(params)
 
     def get_inference_policy(self):
         """The deterministic (mean) actor as a float32 function of obs."""
