@@ -5,7 +5,8 @@ runner and the terrain included) and chip_smoke import, the go2 env builds
 on the CPU at N=4 and steps once, and its PPO runner builds and acts; the
 go2_handstand env of the robustness fine-tune (its DR on) builds and
 resets, and the fine-tune's runner (its PPO knobs on) takes the shipped
-weights, sets its anchor and acts."""
+weights, sets its anchor and acts; and the 2-rank dryrun runs with the same
+imports refused in the parent and in both spawned ranks."""
 
 import os
 import subprocess
@@ -81,3 +82,21 @@ def test_port_imports_and_steps_without_jax():
     )
     assert res.returncode == 0, res.stderr[-4000:]
     assert "imported" in res.stdout
+
+
+def test_parallel_ranks_run_without_jax(tmp_path):
+    """The multi-rank path (``parallel/``, and the rank entry that
+    ``mesh.spawn_ranks`` starts in fresh interpreters) imports no jax: a
+    ``sitecustomize`` that refuses the JAX packages is on the path of the
+    parent and of both spawned ranks, which run the 2-rank dryrun."""
+    refuse = SCRIPT[:SCRIPT.index("import torch")]
+    (tmp_path / "sitecustomize.py").write_text(refuse)
+    res = subprocess.run(
+        [sys.executable, "-m", "unitree_rl_gym_tpu_torch.parallel.dryrun",
+         "--world_size", "2"],
+        cwd=UNITREE_RL_GYM_TPU_ROOT_DIR, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            (str(tmp_path), UNITREE_RL_GYM_TPU_ROOT_DIR))),
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "go2-flat-mlp: n_devices=2 num_envs=8 OK" in res.stdout

@@ -37,6 +37,20 @@ and seeded from ``cfg.seed`` (``--seed``). It cannot reproduce the JAX
 package's PRNG draws; parity tests start both packages from one state
 (:meth:`EnvState.from_numpy`, which takes the DR draws too) with in-step
 randomness off.
+
+Env data parallelism (``block``, a ``parallel.mesh.EnvBlock``): the env
+holds one rank's contiguous block of the ``cfg.env.num_envs`` global envs
+(``num_envs`` is the block's size, ``num_envs_global`` the global count).
+Every per-env draw is made at the global shape from a generator seeded as
+in one process, and the rank keeps its rows, so each env draws what it
+would draw in a one-process run; terrain types stripe by the global env
+id; every rank builds the same terrain; the control step is the rank's
+launch on its block (K4); the command curriculum decides from the mean
+over all ranks' reset envs. The logging sums of ``extras`` stay this
+rank's (the PPO rollout reduces them once per iteration), and
+``terrain_level_mean`` is this rank's share of the global mean. Without a
+block the env holds the one block of one rank, which makes no collective:
+it is exactly the one-process env.
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ from unitree_rl_gym_tpu_torch import resolve_device, resource
 from unitree_rl_gym_tpu_torch.envs import curricula
 from unitree_rl_gym_tpu_torch.envs import rewards as R
 from unitree_rl_gym_tpu_torch.models.robot import Robot, build_robot
+from unitree_rl_gym_tpu_torch.parallel.mesh import all_reduce_sum, env_block
 from unitree_rl_gym_tpu_torch.physics import backend as pback
 from unitree_rl_gym_tpu_torch.physics import contact as ct
 from unitree_rl_gym_tpu_torch.physics import dynamics as dyn
@@ -124,10 +139,18 @@ class LeggedEnv:
     """Static task description + step/reset over batched tensors."""
 
     def __init__(self, cfg: LeggedRobotCfg, robot: Optional[Robot] = None,
-                 device=None):
+                 device=None, block=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         dr = cfg.domain_rand
+        if block is None:
+            block = env_block(cfg.env.num_envs, 0, 1)
+        elif block.n_global != cfg.env.num_envs:
+            raise ValueError(f"env block of {block.n_global} envs for a cfg "
+                             f"of {cfg.env.num_envs}")
+        self.block = block
+        # more than one rank: the cross-env sums are all-reduced
+        self.distributed = block.world_size > 1
 
         contact_bodies = None
         if cfg.asset.prune_contact_bodies:
@@ -146,7 +169,8 @@ class LeggedEnv:
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(int(cfg.seed))
 
-        self.num_envs = cfg.env.num_envs
+        self.num_envs_global = cfg.env.num_envs
+        self.num_envs = block.n_local
         self.num_obs = cfg.env.num_observations
         self.num_privileged_obs = cfg.env.num_privileged_obs
         self.num_actions = cfg.env.num_actions
@@ -208,7 +232,8 @@ class LeggedEnv:
         if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
             from unitree_rl_gym_tpu_torch.utils.terrain import Terrain
 
-            self.terrain = Terrain(cfg.terrain, self.num_envs, seed=cfg.seed)
+            self.terrain = Terrain(cfg.terrain, self.num_envs_global,
+                                   seed=cfg.seed)
             self.grid = self.terrain.grid(dev)
             self.terrain_origins = torch.as_tensor(
                 self.terrain.env_origins, **f32)
@@ -260,9 +285,23 @@ class LeggedEnv:
         vec[12 + na:12 + 2 * na] = ns["dof_vel"] * lvl * osc["dof_vel"]
         return vec
 
-    def _rand(self, *shape, lo=0.0, hi=1.0):
-        u = torch.rand(shape, generator=self.gen, device=self.device)
+    def _env_draw(self, draw, n, *rest):
+        """``draw(shape)`` for the ``n`` envs of this block: the draw over
+        all envs and this block's rows of it."""
+        if n != self.num_envs:
+            raise ValueError(f"a draw for {n} envs on a block of {self.num_envs}")
+        return self.block.rows(draw((self.num_envs_global,) + rest))
+
+    def _rand(self, n, *rest, lo=0.0, hi=1.0):
+        """Uniform draws in [lo, hi) of shape (n, *rest) for ``n`` envs."""
+        u = self._env_draw(lambda s: torch.rand(
+            s, generator=self.gen, device=self.device), n, *rest)
         return lo + (hi - lo) * u
+
+    def _randint(self, high, n):
+        """Integers in [0, high) for ``n`` envs, int64."""
+        return self._env_draw(lambda s: torch.randint(
+            0, high, s, generator=self.gen, device=self.device), n)
 
     def _projected_gravity(self, quat):
         g = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand_as(quat[:, :3])
@@ -403,11 +442,12 @@ class LeggedEnv:
             # types striped across the columns
             max_lvl = (min(tcfg.max_init_terrain_level + 1, tcfg.num_rows)
                        if tcfg.curriculum else tcfg.num_rows)
-            terrain_level = torch.randint(
-                0, max_lvl, (N,), generator=self.gen, device=dev
-            ).to(torch.int32)
-            terrain_type = (torch.arange(N, device=dev) * tcfg.num_cols
-                            // N).to(torch.int32)
+            terrain_level = self._randint(max_lvl, N).to(torch.int32)
+            # by global env id: env i of the N_global is on column
+            # i * num_cols // N_global whatever the rank holding it
+            terrain_type = ((self.block.offset + torch.arange(N, device=dev))
+                            * tcfg.num_cols
+                            // self.num_envs_global).to(torch.int32)
             env_origin = self.terrain_origins[terrain_level.long(),
                                               terrain_type.long()]
         else:
@@ -422,9 +462,11 @@ class LeggedEnv:
                                             task_state=task_state)
         if dr.randomize_friction:
             # 64 friction buckets (legged_robot.py:432-436)
-            buckets = self._rand(64, lo=dr.friction_range[0], hi=dr.friction_range[1])
-            ids = torch.randint(0, 64, (N,), generator=self.gen, device=dev)
-            friction = buckets[ids]
+            # (the buckets are shared by all envs: not an env-batched draw)
+            lo, hi = dr.friction_range
+            buckets = lo + (hi - lo) * torch.rand(
+                (64,), generator=self.gen, device=dev)
+            friction = buckets[self._randint(64, N)]
         else:
             friction = torch.full((N,), self.cfg.terrain.static_friction, device=dev)
         if dr.randomize_base_mass:
@@ -443,9 +485,8 @@ class LeggedEnv:
         if dr.action_delay_prob > 0.0:
             act_delay = self._rand(N) < dr.action_delay_prob
         if init_at_random_ep_len:
-            episode_length = torch.randint(
-                0, self.max_episode_length, (N,), generator=self.gen, device=dev
-            ).to(torch.int32)
+            episode_length = self._randint(self.max_episode_length,
+                                           N).to(torch.int32)
         else:
             episode_length = torch.zeros((N,), dtype=torch.int32, device=dev)
 
@@ -514,7 +555,7 @@ class LeggedEnv:
             self.robot.dyn, self.cparams, self.pd, cfg.sim.dt,
             cfg.control.decimation, state.phys, target, state.friction,
             state.mass_scale, self.m_eff_n, self.m_eff_t, state.gh,
-            cstiff=state.cstiff,
+            cstiff=state.cstiff, block=self.block,
         )
         episode_length = state.episode_length + 1
         state = state.replace(phys=phys, actions=actions,
@@ -607,8 +648,7 @@ class LeggedEnv:
         mb = m[:, None]
         terrain_level, env_origin = state.terrain_level, state.env_origin
         if self.terrain is not None and cfg.terrain.curriculum:
-            rand_level = torch.randint(0, cfg.terrain.num_rows, (N,),
-                                       generator=self.gen, device=self.device)
+            rand_level = self._randint(cfg.terrain.num_rows, N)
             terrain_level, env_origin = curricula.terrain_curriculum_at_reset(
                 cfg.terrain, self.terrain_origins, self.max_episode_length_s,
                 rand_level, m, phys.base_pos, commands, terrain_level,
@@ -620,6 +660,7 @@ class LeggedEnv:
             cmd_vx_range = curricula.command_curriculum_at_reset(
                 cfg.commands.max_curriculum, self.reward_scales[idx],
                 self.max_episode_length, m, episode_sums[:, idx], cmd_vx_range,
+                reduce=all_reduce_sum if self.distributed else None,
             )
 
         # ---- fused reset (legged_robot.py:723-768) ----
@@ -706,8 +747,10 @@ class LeggedEnv:
             },
         }
         if self.terrain is not None and cfg.terrain.curriculum:
-            extras["episode"]["terrain_level"] = torch.mean(
-                terrain_level.to(torch.float32))
+            lvl = terrain_level.to(torch.float32)
+            extras["episode"]["terrain_level"] = (
+                torch.sum(lvl) / self.num_envs_global if self.distributed
+                else torch.mean(lvl))
             extras["terrain_level_mean"] = extras["episode"]["terrain_level"]
         if cfg.commands.curriculum:
             extras["episode"]["max_command_x"] = cmd_vx_range[1]

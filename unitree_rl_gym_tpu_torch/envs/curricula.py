@@ -39,13 +39,19 @@ def terrain_curriculum_at_reset(tcfg, terrain_origins, max_episode_length_s,
 
 def command_curriculum_at_reset(max_curriculum, tracking_scale,
                                 max_episode_length, reset_mask, tracking_sums,
-                                cmd_vx_range):
-    """Widened lin_vel_x command range when reset envs track well."""
+                                cmd_vx_range, reduce=None):
+    """Widened lin_vel_x command range when reset envs track well.
+    ``reduce`` (env data parallelism: ``parallel.mesh.all_reduce_sum``)
+    sums the count of reset envs and their tracking sum over all ranks, so
+    that every rank decides from the global mean and keeps the same
+    range."""
     n_reset = torch.sum(reset_mask)
+    track_sum = torch.sum(torch.where(reset_mask, tracking_sums, 0.0))
+    if reduce is not None:
+        n_reset, track_sum = reduce(torch.stack(
+            (n_reset.to(track_sum.dtype), track_sum))).unbind()
     count = torch.clamp(n_reset, min=1)
-    mean_track = (
-        torch.sum(torch.where(reset_mask, tracking_sums, 0.0)) / count
-    ) / max_episode_length
+    mean_track = (track_sum / count) / max_episode_length
     grow = (mean_track > 0.8 * tracking_scale) & (n_reset > 0)
     widened = torch.stack((
         torch.clamp(cmd_vx_range[0] - 0.5, -max_curriculum, 0.0),

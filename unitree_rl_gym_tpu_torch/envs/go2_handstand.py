@@ -71,8 +71,8 @@ def _interp(x, xp, fp):
 
 
 class GO2HandstandEnv(LeggedEnv):
-    def __init__(self, cfg, robot=None, device=None):
-        super().__init__(cfg, robot, device)
+    def __init__(self, cfg, robot=None, device=None, block=None):
+        super().__init__(cfg, robot, device, block)
         dev = self.device
         # torques are not clipped in the handstand override
         self.pd = dataclasses.replace(self.pd, clip_torque=False)

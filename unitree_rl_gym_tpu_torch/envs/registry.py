@@ -53,8 +53,10 @@ class TaskRegistry:
         env_cfg.seed = train_cfg.seed
         return env_cfg, train_cfg
 
-    def make_env(self, name, args=None, env_cfg=None, device=None):
-        """Build the env for a task; CLI args override the cfg."""
+    def make_env(self, name, args=None, env_cfg=None, device=None, block=None):
+        """Build the env for a task; CLI args override the cfg. ``block``
+        (``parallel.mesh.EnvBlock``) gives the env this rank's block of the
+        cfg's (global) ``num_envs``."""
         if args is None:
             args = helpers.get_args([])
         task_class = self.get_task_class(name)
@@ -62,7 +64,7 @@ class TaskRegistry:
             env_cfg, _ = self.get_cfgs(name)
         env_cfg, _ = helpers.update_cfg_from_args(env_cfg, None, args)
         helpers.set_seed(env_cfg.seed)
-        return task_class(env_cfg, device=device), env_cfg
+        return task_class(env_cfg, device=device, block=block), env_cfg
 
     def make_alg_runner(self, env, name=None, args=None, train_cfg=None,
                         log_root="default"):

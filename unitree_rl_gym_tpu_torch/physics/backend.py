@@ -10,10 +10,12 @@ Two implementations of the decimated control step:
                hand-written CUDA kernels (physics/cuda_step.py), the only
                path of a CUDA tensor.
 
-``control_step`` picks one by the tensors' device and the operands given,
-and nothing else: there is no probe and no fallback, so on a CUDA tensor it
-launches K1 (``gh`` and ``cstiff`` None), K3 (``gh`` given) or K2
-(``cstiff`` given, with or without ``gh``), or raises. chip_smoke.py
+``control_step`` picks one by the tensors' device, the operands given and
+the caller's env block, and nothing else: there is no probe and no
+fallback, so on a CUDA tensor it launches K1 (``gh`` and ``cstiff`` None),
+K3 (``gh`` given) or K2 (``cstiff`` given, with or without ``gh``) — as
+K4, the rank's launch of that instance on its env block, when the caller
+passes a ``parallel.mesh.EnvBlock`` of more than one rank — or raises. chip_smoke.py
 calls ``control_step_soa`` itself to hold the kernels against the plain
 version on the card.
 
@@ -110,11 +112,28 @@ def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
 
 
 def control_step(model, cparams, pd, sim_dt, decimation, state, target,
-                 friction, mass_scale, m_eff_n, m_eff_t, gh=None, cstiff=None):
+                 friction, mass_scale, m_eff_n, m_eff_t, gh=None, cstiff=None,
+                 block=None):
     """The control step of every env: the plain version on a CPU tensor;
     on any other, kernel K2 when ``cstiff`` is given (with or without
     ``gh``), else K3 when ``gh`` is given and K1 when it is not (through
-    their wrappers, which raise on anything they do not take)."""
+    their wrappers, which raise on anything they do not take).
+
+    ``block`` (``parallel.mesh.EnvBlock``): the tensors hold this rank's
+    env block, not every env. With more than one rank, a CUDA tensor goes
+    to K4 (the rank's launch of the same instance on its block) and a CPU
+    tensor to the plain version on the block; the step has no traffic
+    between ranks."""
+    if block is not None and block.world_size > 1:
+        n = state.joint_q.shape[0]
+        if n != block.n_local:
+            raise ValueError(f"{n} envs given, rank {block.rank}'s block "
+                             f"holds {block.n_local}")
+        if state.joint_q.device.type != "cpu":
+            return cuda_step.control_step_sharded(
+                soa_model_for(model), cparams, pd, sim_dt, decimation, state,
+                target, friction, mass_scale, m_eff_n, m_eff_t, block, gh,
+                cstiff)
     if state.joint_q.device.type == "cpu":
         return control_step_soa(
             model, cparams, pd, sim_dt, decimation, state, target, friction,

@@ -1,13 +1,16 @@
 """Kernels K1, K3 and K2 — the decimated physics control step on flat
 ground (K1), on heightfield terrain (K3), and on either with a per-env
-contact stiffness (K2) as hand-written CUDA kernels for Hopper (sm_90a):
-tables, build, binding, launch counts.
+contact stiffness (K2) as hand-written CUDA kernels for Hopper (sm_90a) —
+and K4, one rank's launch of its K1, K3 or K2 instance on its own env
+block: tables, build, binding, launch counts.
 
 Replace the JAX package's Pallas TPU kernel
 (``unitree_rl_gym_tpu/physics/pallas_step.py::_kernel`` launched by
 ``control_step_pallas``): K1 its flat variant (``has_gh=False,
 has_cs=False``), K3 its terrain variant (``has_gh=True``), K2 its
-contact-stiffness variant (``has_cs=True``, with or without ``has_gh``).
+contact-stiffness variant (``has_cs=True``, with or without ``has_gh``);
+K4 replaces ``control_step_pallas_sharded``, which runs one instance of
+the kernel per device of the ("env",) mesh on its local env block.
 The per-env body is ``csrc/control_step.cuh`` (one thread per env, one
 template, ``HAS_GH`` x ``HAS_CS``); the notes at the top of
 ``csrc/control_step.cu`` (K1, K3) and ``csrc/control_step_cs.cu`` (K2) say
@@ -24,11 +27,12 @@ every build of a list of models at once. The model's sizes are
 compile-time constants (``-DUTRL_NB/NCP/NRB``); its numbers travel as a
 :func:`model_tables` byte buffer on the device.
 
-:func:`control_step` (K1), :func:`control_step_terrain` (K3) and
-:func:`control_step_cs` (K2) are the wrappers: each launches its kernel on
-CUDA tensors and raises on anything else (``backend.control_step`` sends
-CPU tensors to the plain version). ``LAUNCHES`` counts K1's launches,
-``LAUNCHES_TERRAIN`` K3's and ``LAUNCHES_CS`` K2's.
+:func:`control_step` (K1), :func:`control_step_terrain` (K3),
+:func:`control_step_cs` (K2) and :func:`control_step_sharded` (K4) are the
+wrappers: each launches its kernel on CUDA tensors and raises on anything
+else (``backend.control_step`` sends CPU tensors to the plain version).
+``LAUNCHES`` counts K1's launches, ``LAUNCHES_TERRAIN`` K3's,
+``LAUNCHES_CS`` K2's and ``LAUNCHES_SHARDED`` K4's.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ NVCC_FLAGS = (
 LAUNCHES = 0            # K1
 LAUNCHES_TERRAIN = 0    # K3
 LAUNCHES_CS = 0         # K2 (flat and terrain)
+LAUNCHES_SHARDED = 0    # K4 (a rank's K1, K3 or K2 instance on its block)
 # nvcc's stderr (ptxas register / spill report) of each build, by library
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -430,4 +435,29 @@ def control_step_cs(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
                   mass_scale, m_eff_n, m_eff_t, gh, cstiff, "K2")
     global LAUNCHES_CS
     LAUNCHES_CS += 1
+    return res
+
+
+def control_step_sharded(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
+                         state, target, friction, mass_scale, m_eff_n,
+                         m_eff_t, block, gh=None, cstiff=None):
+    """K4's wrapper: this rank's launch of K1 (``gh`` and ``cstiff`` None),
+    K3 (``gh``) or K2 (``cstiff``) on its env block ``block``
+    (``parallel.mesh.EnvBlock``), on the current stream of the rank's
+    device. Every operand holds the block's ``n_local`` envs; ``gh`` is the
+    block's contiguous [ncp, n_local] rows (a strided view of the global
+    rows raises) and aux's ``p_xy`` comes back as [2*ncp, n_local]. Envs
+    are independent and the kernel runs one thread per env, so the outputs
+    are the bits of the block's rows of a launch over all envs. Raises like
+    K1's, and on a batch that is not the block's."""
+    n = state.joint_q.shape[0]
+    if n != block.n_local:
+        raise ValueError(f"K4 got {n} envs, rank {block.rank}'s block holds "
+                         f"{block.n_local}")
+    instance = "K2" if cstiff is not None else ("K3" if gh is not None else "K1")
+    res = _launch(m, cparams, pd, sim_dt, decimation, state, target, friction,
+                  mass_scale, m_eff_n, m_eff_t, gh, cstiff,
+                  f"K4 ({instance} on rank {block.rank})")
+    global LAUNCHES_SHARDED
+    LAUNCHES_SHARDED += 1
     return res

@@ -30,6 +30,34 @@ The learning rate lives on the host, so each minibatch step reads its KL
 (and, with ``nan_guard``, its finiteness) back from the device: one
 synchronisation per minibatch, 20 per update at the defaults. The
 recurrent update is not ported yet.
+
+Env data parallelism (``block``, a ``parallel.mesh.EnvBlock``; the JAX
+package gets it from XLA's collectives under one global program): the
+algorithm keeps the one-process semantics over all ``block.n_global`` envs,
+up to the order of floating-point sums.
+
+  * draws are global: the rollout's action noise is drawn over all envs
+    and the rank keeps its rows; the update's permutation is of all T*N
+    global samples, the same on every rank (the generator is seeded alike);
+  * global minibatch i is ``perm[i*mb:(i+1)*mb]`` of the global flat
+    indices ``t*N + n``; a rank takes the samples of it that lie in its
+    block, in the permutation's order (the local counts differ);
+  * every mean of the loss is a local sum over the global count; the class
+    weights' share and mean and the anchor KL's mask count come from one
+    all-reduce of their sums before the forward pass (only when those
+    knobs are on), and after ``backward`` one all-reduce of a single flat
+    buffer sums the gradients, the loss and its terms, the KL and a
+    non-finite flag, so every rank takes the same clip, nan-guard and
+    learning-rate decisions from the same bits and the replicas stay
+    identical;
+  * GAE normalises with the global mean and the global sum of squared
+    deviations (two passes, ddof 0);
+  * the rollout's logging sums are reduced once per iteration.
+
+One process is the block of one rank (``block`` None gives it). Its draws
+and minibatches take the same path; it makes no collective, and takes the
+mean of the loss and the std of GAE as torch does, so every result is bit
+for bit the one-process result.
 """
 
 from __future__ import annotations
@@ -42,6 +70,7 @@ import numpy as np
 import torch
 
 from unitree_rl_gym_tpu_torch.models import networks as nets
+from unitree_rl_gym_tpu_torch.parallel.mesh import all_reduce_sum, env_block
 from unitree_rl_gym_tpu_torch.utils.config import AlgorithmCfg
 
 
@@ -72,16 +101,28 @@ class PPO:
     ``state_class_fn`` (obs -> [B] in {0, 1}: the task-critical states, e.g.
     ``GO2HandstandEnv.ppo_state_class_fn``) drives the class re-weighting
     and, unless ``anchor_mask_fn`` is given, the anchor-KL mask; both
-    features are off when it is None."""
+    features are off when it is None.
+
+    ``num_envs`` is the number of envs this process holds: the block's
+    ``n_local`` under env data parallelism (``block``; see the module
+    docstring)."""
 
     def __init__(self, net: nets.ActorCritic, cfg: AlgorithmCfg, num_steps: int,
                  num_envs: int, device, share_critic_obs: bool = False,
                  seed: int = 0, state_class_fn: Optional[Callable] = None,
-                 anchor_mask_fn: Optional[Callable] = None):
+                 anchor_mask_fn: Optional[Callable] = None, block=None):
         self.net = net
         self.cfg = cfg
         self.num_steps = num_steps
         self.num_envs = num_envs
+        self.block = env_block(num_envs, 0, 1) if block is None else block
+        if self.block.n_local != num_envs:
+            raise ValueError(f"{num_envs} envs on a block of {self.block.n_local}")
+        self.num_envs_global = self.block.n_global
+        # more than one rank: the cross-env sums are all-reduced
+        self.distributed = self.block.world_size > 1
+        # host seconds in the update's gradient all-reduces (data parallel)
+        self.allreduce_s = 0.0
         self.device = torch.device(device)
         # tasks without privileged obs feed the critic the actor's obs; the
         # rollout stores no duplicate
@@ -131,7 +172,9 @@ class PPO:
                 env_state = env.refresh_terrain(env_state)
             mu, std, value = self.net(obs, None if self.share_critic_obs
                                       else critic_obs)
-            eps = torch.randn(mu.shape, generator=self.gen, device=dev)
+            eps = self.block.rows(torch.randn(
+                (self.num_envs_global,) + mu.shape[1:], generator=self.gen,
+                device=dev))
             actions = mu + std * eps
             logp = nets.log_prob(mu, std, actions)
             env_state, next_obs, next_priv, rew, done, extras = env.step(
@@ -147,7 +190,7 @@ class PPO:
             ep_sums += extras["episode_sums_at_reset"]
             reset_count += extras["episode_reset_count"]
             ep_len_sum += extras["episode_length_at_reset"]
-            rew_sum += rew.mean()
+            rew_sum += self._env_mean(rew)
             terrain_level = extras.get("terrain_level_mean", terrain_level)
             max_cmd_x = extras.get("max_command_x", max_cmd_x)
             obs = next_obs
@@ -158,6 +201,19 @@ class PPO:
             log_probs=st["log_probs"], values=st["values"], advantages=None,
             returns=None, mu=st["mu"], std=st["std"],
         )
+        if self.distributed:
+            # the iteration's logging sums over all ranks, in one collective
+            # (float64: the counts stay exact)
+            k = ep_sums.numel()
+            tot = all_reduce_sum(torch.cat((
+                ep_sums.double(), torch.stack((
+                    reset_count.double(), ep_len_sum.double(),
+                    rew_sum.double(), terrain_level.double())))))
+            ep_sums = tot[:k].to(ep_sums.dtype)
+            reset_count, ep_len_sum = (tot[k].to(torch.int64),
+                                       tot[k + 1].to(torch.int64))
+            rew_sum, terrain_level = (tot[k + 2].to(rew_sum.dtype),
+                                      tot[k + 3].to(rew_sum.dtype))
         ep_stats = {
             "episode_sums": ep_sums,
             "reset_count": reset_count,
@@ -187,43 +243,89 @@ class PPO:
             v_next = values[t]
         advantages = torch.stack(advantages[::-1])
         returns = advantages + values
-        adv_n = ((advantages - advantages.mean())
-                 / (advantages.std(correction=0) + 1e-8))
-        return adv_n, returns
+        if not self.distributed:
+            adv_n = ((advantages - advantages.mean())
+                     / (advantages.std(correction=0) + 1e-8))
+            return adv_n, returns
+        # the global mean, then the global sum of squared deviations from
+        # it (two passes, as torch.std; ddof 0)
+        count = advantages.shape[0] * self.num_envs_global
+        mean = all_reduce_sum(advantages.sum().reshape(1))[0] / count
+        dev = advantages - mean
+        ss = all_reduce_sum(torch.sum(dev * dev).reshape(1))[0]
+        return dev / (torch.sqrt(ss / count) + 1e-8), returns
+
+    # ------------------------------------------------------------------
+    # env data parallelism
+    # ------------------------------------------------------------------
+
+    def _env_mean(self, x):
+        """The mean over all envs of [N] ``x`` (over ranks: this rank's
+        share of it, summed over ranks by the caller)."""
+        if not self.distributed:
+            return x.mean()
+        return x.sum() / self.num_envs_global
 
     # ------------------------------------------------------------------
     # update
     # ------------------------------------------------------------------
 
-    def _class_weights(self, obs):
+    def _class_weights(self, obs, c_sum=None, count=None):
         """Mean-one per-sample weights of the one-sided class re-weighting:
         when the class-1 share of the minibatch is below
         ``class_target_frac``, class 1 is weighted up to restore it (capped
-        at ``class_weight_cap``) and class 0 down; else all weights are 1."""
+        at ``class_weight_cap``) and class 0 down; else all weights are 1.
+        ``c_sum`` and ``count``: the global minibatch's class-1 count and
+        size (env data parallelism); the weights take two values, so the
+        global share and mean weight follow from them."""
         cfg = self.cfg
         c = self.state_class_fn(obs).to(torch.float32).detach()
-        frac = torch.mean(c)
+        frac = torch.mean(c) if count is None else c_sum / count
         tau = cfg.class_target_frac
         low = frac < tau
         w1 = torch.where(low, torch.clamp(tau / (frac + 1e-6),
                                           max=cfg.class_weight_cap), 1.0)
         w0 = torch.where(low, (1.0 - tau) / (1.0 - frac + 1e-6), 1.0)
         w = c * w1 + (1.0 - c) * w0
-        return w / torch.mean(w)
+        if count is None:
+            return w / torch.mean(w)
+        return w / ((c_sum * w1 + (count - c_sum) * w0) / count)
 
-    def loss(self, b: Batch):
+    def loss(self, b: Batch, count: Optional[int] = None):
         """PPO loss on a minibatch [B, ...]; returns (loss, (surrogate,
         value loss, kl, anchor loss)) with the stats detached (the anchor
-        loss is 0 where the anchor KL is off)."""
+        loss is 0 where the anchor KL is off).
+
+        ``count`` (env data parallelism): the size of the global minibatch
+        of which ``b`` holds this rank's samples. Every mean is then a sum
+        over ``b`` divided by ``count``, and the loss and stats are this
+        rank's shares of the global ones (their sum over ranks)."""
         cfg = self.cfg
+        use_w = self.state_class_fn is not None and cfg.class_target_frac > 0.0
+        use_anchor = (cfg.anchor_kl_coef > 0.0 and self.anchor is not None
+                      and self.state_class_fn is not None)
+        mask_fn = self.anchor_mask_fn or self.state_class_fn
+        sums = None
+        if count is not None and (use_w or use_anchor):
+            # the global class-1 count and anchor-mask count: one collective
+            # before the forward pass (both depend on obs alone)
+            z = torch.zeros((), device=b.obs.device)
+            sums = all_reduce_sum(torch.stack((
+                self.state_class_fn(b.obs).to(torch.float32).sum() if use_w else z,
+                mask_fn(b.obs).to(torch.float32).sum() if use_anchor else z)))
         mu, std, value = self.net(b.obs, b.critic_obs)
-        if self.state_class_fn is not None and cfg.class_target_frac > 0.0:
-            w = self._class_weights(b.obs)
+
+        def mean(x):
+            return torch.mean(x) if count is None else torch.sum(x) / count
+
+        if use_w:
+            w = (self._class_weights(b.obs) if count is None
+                 else self._class_weights(b.obs, sums[0], count))
 
             def wmean(x):
-                return torch.mean(w * x)
+                return mean(w * x)
         else:
-            wmean = torch.mean
+            wmean = mean
         logp = nets.log_prob(mu, std, b.actions)
         ratio = torch.exp(logp - b.log_probs)
         surr = -b.advantages * ratio
@@ -242,8 +344,7 @@ class PPO:
         loss = (surrogate_loss + cfg.value_loss_coef * value_loss
                 - cfg.entropy_coef * ent)
         anchor_loss = torch.zeros((), device=mu.device)
-        if (cfg.anchor_kl_coef > 0.0 and self.anchor is not None
-                and self.state_class_fn is not None):
+        if use_anchor:
             # KL(anchor || pi) on the states the anchor mask protects,
             # with its own masked mean
             with torch.no_grad(), torch.profiler.record_function(
@@ -251,12 +352,12 @@ class PPO:
                 a_mu = self.anchor.act(b.obs)
                 a_std = torch.exp(self.anchor.log_std).expand_as(a_mu)
             akl = nets.kl_divergence(a_mu, a_std, mu, std)
-            mask_fn = self.anchor_mask_fn or self.state_class_fn
             mask = mask_fn(b.obs).to(akl.dtype).detach()
-            anchor_loss = torch.sum(mask * akl) / (torch.sum(mask) + 1e-6)
+            n_mask = torch.sum(mask) if count is None else sums[1]
+            anchor_loss = torch.sum(mask * akl) / (n_mask + 1e-6)
             loss = loss + cfg.anchor_kl_coef * anchor_loss
         # the adaptive rate's KL stays unweighted (rsl_rl's schedule)
-        kl = torch.mean(nets.kl_divergence(b.mu, b.std, mu, std)).detach()
+        kl = mean(nets.kl_divergence(b.mu, b.std, mu, std)).detach()
         return loss, (surrogate_loss.detach(), value_loss.detach(), kl,
                       anchor_loss.detach())
 
@@ -298,16 +399,46 @@ class PPO:
             group["lr"] = self.lr
         self.optimizer.step()
 
-    def minibatch_step(self, b: Batch):
-        """One optimizer application: loss, gradient, :meth:`apply_step`.
-        Returns ((surrogate, value loss, kl, anchor loss), skipped). With
-        ``nan_guard`` a minibatch whose loss, gradient norm or KL is not
-        finite is skipped before the optimizer: parameters, Adam's moments
-        and step count, and the learning rate keep their values, and its
-        stats come back as zeros with ``skipped`` True."""
-        loss, stats = self.loss(b)
+    def minibatch_grads(self, b: Batch, count: Optional[int] = None):
+        """Loss and gradient (in ``.grad``) of a minibatch; returns (loss,
+        stats) as :meth:`loss`. Over ranks, ``b`` holds this rank's
+        samples of a global minibatch of ``count`` samples, and one
+        all-reduce of a single flat buffer makes every rank's gradient,
+        loss, stats and non-finite flag the global ones (identical bits on
+        every rank)."""
+        loss, stats = self.loss(b, count if self.distributed else None)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if not self.distributed:
+            return loss, stats
+        params = list(self.net.parameters())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        loss = loss.detach()
+        flag = (~torch.isfinite(loss)).to(loss.dtype)
+        t0 = time.perf_counter()
+        flat = all_reduce_sum(torch.cat(
+            [g.reshape(-1) for g in grads]
+            + [torch.stack((loss,) + tuple(stats) + (flag,))]))
+        self.allreduce_s += time.perf_counter() - t0
+        i = 0
+        for p, g in zip(params, grads):
+            p.grad = flat[i:i + g.numel()].view_as(g)
+            i += g.numel()
+        loss, *stats, flag = flat[i:].unbind()
+        # a non-finite part on any rank makes the global loss non-finite
+        loss = torch.where(flag > 0, torch.nan, loss)
+        return loss, tuple(stats)
+
+    def minibatch_step(self, b: Batch, count: Optional[int] = None):
+        """One optimizer application: loss, gradient (:meth:`minibatch_grads`),
+        :meth:`apply_step`. Returns ((surrogate, value loss, kl, anchor
+        loss), skipped). With ``nan_guard`` a minibatch whose loss, gradient
+        norm or KL is not finite is skipped before the optimizer:
+        parameters, Adam's moments and step count, and the learning rate
+        keep their values, and its stats come back as zeros with
+        ``skipped`` True."""
+        loss, stats = self.minibatch_grads(b, count)
         norm = self._grad_norm()
         kl = stats[2]
         if self.cfg.nan_guard:
@@ -322,29 +453,51 @@ class PPO:
         self.apply_step(kl_h, norm)
         return stats, False
 
-    def update(self, transitions: Batch, advantages, returns):
+    def minibatches(self, transitions: Batch, perm):
+        """The num_mini_batches minibatches of one update over the [T, N]
+        ``transitions`` (advantages and returns set) and the permutation
+        ``perm`` of the T*N global samples: minibatch i holds this rank's
+        samples of ``perm[i*mb:(i+1)*mb]`` (global flat index
+        ``t*N_global + n``), in the permutation's order; one rank holds
+        them all. Returns (list of :class:`Batch`, mb: the global
+        minibatch size)."""
+        T, N = transitions.advantages.shape
+        nmb = self.cfg.num_mini_batches
+        mb = (T * self.num_envs_global) // nmb
+
+        def flat(x):
+            return x.reshape((T * N,) + x.shape[2:])
+
+        ng, off = self.num_envs_global, self.block.offset
+        out = []
+        for i in range(nmb):
+            g = perm[i * mb:(i + 1) * mb]
+            t, n = g // ng, g % ng - off
+            local = (t * N + n)[(n >= 0) & (n < N)]
+            out.append(Batch(*(None if x is None else flat(x)[local]
+                               for x in transitions)))
+        return out, mb
+
+    def update(self, transitions: Batch, advantages, returns, perm=None):
         """num_learning_epochs x num_mini_batches PPO steps over one
-        permutation of the T*N samples."""
+        permutation of the T*N global samples (``perm``: that permutation,
+        drawn from the PPO generator when None)."""
         cfg = self.cfg
-        T, N = advantages.shape
+        T = advantages.shape[0]
         full = transitions._replace(advantages=advantages, returns=returns)
-        perm = torch.randperm(T * N, generator=self.gen, device=self.device)
-        flat = Batch(*(
-            None if x is None else x.reshape((T * N,) + x.shape[2:])[perm]
-            for x in full
-        ))
-        nmb = cfg.num_mini_batches
-        mb = (T * N) // nmb
+        if perm is None:
+            perm = torch.randperm(T * self.num_envs_global, generator=self.gen,
+                                  device=self.device)
+        mbs, mb = self.minibatches(full, perm.to(self.device))
         stats = torch.zeros(4, device=self.device)
         skipped = 0
+        self.allreduce_s = 0.0
         for _ in range(cfg.num_learning_epochs):
-            for i in range(nmb):
-                b = Batch(*(None if x is None else x[i * mb:(i + 1) * mb]
-                            for x in flat))
-                step_stats, was_skipped = self.minibatch_step(b)
+            for b in mbs:
+                step_stats, was_skipped = self.minibatch_step(b, mb)
                 stats += torch.stack(step_stats)
                 skipped += int(was_skipped)
-        n_applied = max(cfg.num_learning_epochs * nmb - skipped, 1)
+        n_applied = max(cfg.num_learning_epochs * len(mbs) - skipped, 1)
         return {
             "surrogate_loss": stats[0] / n_applied,
             "value_loss": stats[1] / n_applied,
@@ -352,6 +505,7 @@ class PPO:
             "anchor_loss": stats[3] / n_applied,
             "lr": self.lr,
             "nonfinite_steps": float(skipped),
+            "allreduce_s": self.allreduce_s,
         }
 
     # ------------------------------------------------------------------

@@ -17,6 +17,14 @@ every ``save_interval`` iterations and at the end, each with the JSON meta
 ``model_<iteration>.pt.json`` of the JAX runner, and ``curves.json`` (one
 row of metrics per iteration) beside them. Reading the JAX package's Flax
 ``.ckpt`` files is not ported yet, nor the TensorBoard writer.
+
+Env data parallelism: with an env that holds one rank's block of the envs
+(``env.block``, ``parallel.mesh.EnvBlock``), every rank runs this runner on
+its block; the network is built from the same seed on every rank and then
+broadcast from rank 0 once, PPO keeps the replicas identical (``rl/ppo.py``),
+rank 0 alone prints and writes ``model_<it>.pt``, its meta and
+``curves.json``, and every rank loads a checkpoint. The throughput counts
+the steps of all ranks' envs.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import List, Optional
 import torch
 
 from unitree_rl_gym_tpu_torch.models import networks as nets
+from unitree_rl_gym_tpu_torch.parallel.mesh import broadcast_
 from unitree_rl_gym_tpu_torch.rl.ppo import PPO
 from unitree_rl_gym_tpu_torch.utils.config import TrainCfg, class_to_dict
 
@@ -40,6 +49,9 @@ class OnPolicyRunner:
         self.log_dir = log_dir
         self.device = env.device
         self.current_learning_iteration = 0
+        self.block = env.block
+        # rank 0 of a data-parallel run (or the only process) logs and saves
+        self.is_main = self.block.rank == 0
 
         policy_cfg = train_cfg.policy
         policy_cfg._class_name = train_cfg.runner.policy_class_name
@@ -58,7 +70,11 @@ class OnPolicyRunner:
             # class re-weighting and the anchor KL (GO2HandstandEnv)
             state_class_fn=getattr(env, "ppo_state_class_fn", None),
             anchor_mask_fn=getattr(env, "ppo_anchor_mask_fn", None),
+            block=self.block,
         )
+        if env.distributed:
+            # identical replicas from the first step: rank 0's parameters
+            broadcast_(list(self.net.parameters()))
         self._env_state = None
         self._obs = None
         self._critic_obs = None
@@ -81,7 +97,8 @@ class OnPolicyRunner:
         """Train; returns the metric rows of these iterations."""
         self._ensure_env(init_at_random_ep_len)
         start = self.current_learning_iteration
-        steps_per_iter = self.env.num_envs * self.cfg.runner.num_steps_per_env
+        steps_per_iter = (self.env.num_envs_global
+                          * self.cfg.runner.num_steps_per_env)
         rows = []
         for it in range(start, start + num_learning_iterations):
             t0 = time.perf_counter()
@@ -93,9 +110,10 @@ class OnPolicyRunner:
             dt = time.perf_counter() - t0
             self.current_learning_iteration = it + 1
             rows.append(self._log(it, metrics, steps_per_iter / dt, dt))
-            if self.log_dir and (it + 1) % self.cfg.runner.save_interval == 0:
+            if (self.log_dir and self.is_main
+                    and (it + 1) % self.cfg.runner.save_interval == 0):
                 self.save(os.path.join(self.log_dir, f"model_{it + 1}.pt"))
-        if self.log_dir:
+        if self.log_dir and self.is_main:
             self.save(os.path.join(
                 self.log_dir, f"model_{self.current_learning_iteration}.pt"))
         return rows
@@ -110,14 +128,15 @@ class OnPolicyRunner:
                                metrics["episode_sums"])
         }
         mean_ep_len = float(metrics["episode_length_sum"]) / count
-        print(
-            f"it {it:5d} | {fps:9.0f} steps/s | rew {metrics['mean_step_reward']:.4f} | "
-            f"ep_len {mean_ep_len:7.1f} | vloss {metrics['value_loss']:.4f} | "
-            f"kl {metrics['kl']:.4f} | lr {metrics['lr']:.2e} | "
-            f"anchor {metrics['anchor_loss']:.4f} | "
-            f"skipped {metrics['nonfinite_steps']:.0f}",
-            flush=True,
-        )
+        if self.is_main:
+            print(
+                f"it {it:5d} | {fps:9.0f} steps/s | rew {metrics['mean_step_reward']:.4f} | "
+                f"ep_len {mean_ep_len:7.1f} | vloss {metrics['value_loss']:.4f} | "
+                f"kl {metrics['kl']:.4f} | lr {metrics['lr']:.2e} | "
+                f"anchor {metrics['anchor_loss']:.4f} | "
+                f"skipped {metrics['nonfinite_steps']:.0f}",
+                flush=True,
+            )
         row = {
             "it": it,
             "mean_step_reward": metrics["mean_step_reward"],
@@ -134,6 +153,8 @@ class OnPolicyRunner:
             "update_s": metrics["update_s"],
             "episode_rew": ep_rews,
         }
+        if self.env.distributed:
+            row["allreduce_s"] = metrics["allreduce_s"]
         if getattr(self.env, "terrain", None) is not None:
             row["terrain_level"] = metrics["terrain_level_mean"]
         if self.env.cfg.commands.curriculum:

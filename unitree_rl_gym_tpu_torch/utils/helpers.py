@@ -1,7 +1,8 @@
 """CLI args, seeding and checkpoint discovery (counterpart of
 ``unitree_rl_gym_tpu/utils/helpers.py``). ``--device`` picks the torch device
-(CUDA by default); ``--load_flat`` points play at a flat-weight policy
-directory."""
+(CUDA by default); ``--dist_backend`` the backend of a torchrun launch;
+``--load_flat`` points play at a flat-weight policy directory.
+``--num_envs`` is the global env count, whatever the number of ranks."""
 
 from __future__ import annotations
 
@@ -92,5 +93,11 @@ def get_args(argv=None):
     p.add_argument(
         "--device", type=str, default="cuda",
         help="torch device: cuda (default; raises without a GPU) or cpu",
+    )
+    p.add_argument(
+        "--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+        help="torch.distributed backend of a torchrun launch (default: nccl "
+             "with a CUDA device per rank, gloo on the CPU; ranks that would "
+             "share a card need gloo named here)",
     )
     return p.parse_args(argv)
