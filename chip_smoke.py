@@ -21,7 +21,11 @@ launch, bit for bit):
   2. build    every library from source with nvcc, all started together:
               csrc/control_step.cu (K1, K3) and csrc/control_step_cs.cu
               (K2) at go2's sizes and at the handstand's (79 contact
-              points); prints K1's and K3's ptxas report;
+              points); prints K1's and K3's ptxas report (registers, stack
+              frame, spills), one warp's shared-memory scratch and the
+              blocks per SM that the CUDA runtime's occupancy calculator
+              grants each instance; K1 and K3 must spill no register,
+              and their resident blocks must hold all 4096 envs at once;
   3. compare  one control step through K1 (``backend.control_step``, the
               env's path) and through the plain version
               (``backend.control_step_soa``) at N=4096, from a fresh reset and
@@ -32,7 +36,9 @@ launch, bit for bit):
               activation edge (|phi| < 1e-6) during that step, and at most
               0.1% of the envs (4 of 4096) may be excused; those envs are
               counted and their largest errors printed;
-  4. time     K1 and the plain version on the same inputs (CUDA events);
+  4. time     K1 and the plain version on the same inputs (CUDA events),
+              beside K1's ptxas report; K1 also on the first envs only,
+              one per SM (one env's chain of dependent phases);
   5. slice    400 control steps of play's loop; every one must launch K1
               once, and the policy must walk (the health bar of
               tests/test_pretrained_go2.py after the first third of the
@@ -46,7 +52,8 @@ launch, bit for bit):
               and the terrain curriculum, as bench.py's go2_terrain), from
               the reset state and after 24 steps of the freshly initialised
               policy, with K1's tolerance and excuse rule, p_xy included;
-  8. time_terrain  K3 and the plain version (CUDA events);
+  8. time_terrain  K3 and the plain version (CUDA events), beside K3's
+              ptxas report;
   9. train    ``OnPolicyRunner.learn`` on go2_terrain: one warm-up
               iteration, then TRAIN_ITERS iterations with the launch counts
               zeroed just before: K3 must launch 24 times per iteration and
@@ -66,7 +73,8 @@ launch, bit for bit):
               stiffness 1 must give K1's bits on the same inputs; K2's
               terrain instance against the plain version at the
               go2_terrain reset;
- 13. time_cs  K2 and the plain version (CUDA events) and K2's bound;
+ 13. time_cs  K2 and the plain version (CUDA events) and K2's bound,
+              beside K2's ptxas report, scratch and resident blocks;
  14. hold     450 steps of the pretrained handstand policy under the eval
               overrides of tests/test_pretrained_go2.py (K1 at the
               handstand's sizes): at least half of the envs hold a
@@ -265,6 +273,16 @@ def cuda_ms(torch, fn, reps, warmup):
     return a.elapsed_time(b) / reps
 
 
+def first_envs(x, n):
+    """A control step's inputs (phys state, target, friction, mass scale,
+    then the per-point m_eff_n and m_eff_t) cut to their first ``n`` envs."""
+    phys, target, friction, mass_scale, m_eff_n, m_eff_t = x
+    phys = phys.replace(**{k: getattr(phys, k)[:n].contiguous()
+                           for k in ("base_pos", "base_quat", "joint_q", "v")})
+    return (phys, target[:n].contiguous(), friction[:n].contiguous(),
+            mass_scale[:n].contiguous(), m_eff_n, m_eff_t)
+
+
 def flat_outputs(state, aux):
     out = {k: getattr(state, k) for k in ("base_pos", "base_quat", "joint_q", "v")}
     out.update(aux)
@@ -419,7 +437,9 @@ def terrain_phases(torch, dev):
         cuda_step, m, cfg.control.decimation, env.cparams.iterations, True)
     emit({"phase": "time_terrain", "k3_ms": k3_ms, "plain_ms": plain_ms,
           "flops_per_env": flops, "bytes_per_env": nbytes, "bound_ms": bound_ms,
-          "ops_ms": t_ops, "bytes_ms": t_bytes, "seconds": time.time() - t0})
+          "ops_ms": t_ops, "bytes_ms": t_bytes,
+          "ptxas": instance_ptxas(cuda_step, m, "control_step", "K3"),
+          "seconds": time.time() - t0})
 
     # ---- 9. the training path: OnPolicyRunner.learn on go2_terrain ----
     t0 = time.time()
@@ -512,6 +532,24 @@ def ptxas_by_kernel(log):
         elif cur and ("registers" in ln or "stack frame" in ln):
             out[cur].append(ln.split(" : ")[-1].strip())
     return out
+
+
+def spill_bytes(lines):
+    """(spill stores, spill loads) in bytes from an instance's ptxas lines."""
+    import re
+
+    for ln in lines:
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if hit:
+            return int(hit.group(1)), int(hit.group(2))
+    raise RuntimeError(f"no spill report in ptxas lines {lines}")
+
+
+def instance_ptxas(cuda_step, m, library, instance):
+    """The ptxas lines of ``instance`` in the build of ``library`` for
+    SoAModel ``m`` (phase 2 built it)."""
+    log = cuda_step.BUILD_LOGS.get(cuda_step.library_path(m, library), "")
+    return ptxas_by_kernel(log).get(instance, [])
 
 
 def handstand_model(dev):
@@ -731,7 +769,20 @@ def handstand_phases(torch, dev, libs, build_s):
     emit({"phase": "time_cs", "k2_ms": k2_ms, "plain_ms": plain_ms,
           "k1_same_inputs_ms": k1_hs_ms, "k2_terrain_go2_ms": k2_terrain_ms,
           "flops_per_env": flops, "bytes_per_env": nbytes, "bound_ms": bound_ms,
-          "ops_ms": t_ops, "bytes_ms": t_bytes, "seconds": time.time() - t0})
+          "ops_ms": t_ops, "bytes_ms": t_bytes,
+          "ptxas": {"K2 flat": instance_ptxas(cuda_step, m, "control_step_cs", "K2 flat"),
+                    "K2 terrain (go2 sizes)": instance_ptxas(
+                        cuda_step, pb.soa_model_for(t_env.robot.dyn),
+                        "control_step_cs", "K2 terrain")},
+          "scratch_bytes_per_warp": {
+              "K2 flat": cuda_step.scratch_bytes(m, "control_step_cs"),
+              "K2 terrain (go2 sizes)": cuda_step.scratch_bytes(
+                  pb.soa_model_for(t_env.robot.dyn), "control_step_cs", True)},
+          "resident_blocks_per_sm": {
+              "K2 flat": cuda_step.resident_envs(m, "control_step_cs")[0],
+              "K2 terrain (go2 sizes)": cuda_step.resident_envs(
+                  pb.soa_model_for(t_env.robot.dyn), "control_step_cs", True)[0]},
+          "seconds": time.time() - t0})
     del t_env, t_state, t_x, cases
 
     # ---- 14. the pretrained handstand holds (K1 at the handstand's sizes) ----
@@ -1250,6 +1301,10 @@ def dp_phases(torch, dev, t_start):
     torch.save({n: dict(c, inputs={k: v.cpu() for k, v in c["inputs"].items()})
                 for n, c in cases.items()}, os.path.join(out_dir, "kernel_cases.pt"))
     m = pb.soa_model_for(k1["args"][0])
+    ptxas = {"K1": instance_ptxas(cuda_step, m, "control_step", "K1"),
+             "K3": instance_ptxas(cuda_step, m, "control_step", "K3"),
+             "K2": instance_ptxas(cuda_step, pb.soa_model_for(cases["K2"]["args"][0]),
+                                  "control_step_cs", "K2 flat")}
     decimation, iterations = k1["args"][4], k1["args"][1].iterations
     del cases, x0, phys0
     t_kernel_prep = time.time() - t0
@@ -1324,7 +1379,7 @@ def dp_phases(torch, dev, t_start):
           "n_local": N_ENVS // DP_WORLD, "backend": "gloo", "bit_identical": True,
           "max_abs_err_vs_one_process_rows": max_err,
           "max_abs_err_state_vs_plain": plain_err, "kernels": kernel_rec,
-          "plain_ms_block_k1": plain_block_ms,
+          "plain_ms_block_k1": plain_block_ms, "ptxas_by_instance": ptxas,
           "seconds_one_process": t_kernel_prep})
 
     # ---- 18. 1 rank vs 2 ranks after one iteration: the ranks identical
@@ -1514,10 +1569,25 @@ def main():
     libs = cuda_step.build_all([m, m_hs])
     build_s = time.time() - t_build
     lib_path = libs[("control_step", cuda_step.size_defines(m))]
+    ptxas = ptxas_by_kernel(cuda_step.BUILD_LOGS.get(lib_path, ""))
+    spills = {k: spill_bytes(ptxas.get(k, [])) for k in ("K1", "K3")}
+    scratch = {k: cuda_step.scratch_bytes(m, terrain=k == "K3") for k in ("K1", "K3")}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = {k: cuda_step.resident_envs(m, terrain=k == "K3") for k in ("K1", "K3")}
     emit({"phase": "build", "library": lib_path.split("unitree_rl_gym_tpu_torch/")[-1],
           "build_seconds": build_s, "libraries_built_together": len(libs),
-          "ptxas": ptxas_by_kernel(cuda_step.BUILD_LOGS.get(lib_path, "")),
+          "ptxas": ptxas, "spill_bytes_stores_loads": spills,
+          "scratch_bytes_per_warp": scratch,
+          "resident_blocks_per_sm": {k: b for k, (b, _) in resident.items()},
+          "envs_per_block": resident["K1"][1], "sms": n_sm,
           "seconds": time.time() - t0})
+    for k, v in spills.items():
+        check(v == (0, 0), f"{k} spills registers: {v} bytes (stores, loads)")
+    # the design: every env of the main path's launch resident at once
+    for k, (blocks, per_block) in resident.items():
+        check(blocks * per_block * n_sm >= N_ENVS,
+              f"{k}: {blocks} resident blocks of {per_block} envs on {n_sm} SMs "
+              f"hold fewer than {N_ENVS} envs")
 
     # ---- 3. K1 against the plain version at full width ----
     t0 = time.time()
@@ -1563,12 +1633,18 @@ def main():
 
     k1_ms = cuda_ms(torch, lambda: pb.control_step(*step_args, *x), TIME_LAUNCHES, 3)
     plain_ms = cuda_ms(torch, lambda: pb.control_step_soa(*step_args, *x), TIME_PLAIN, 1)
+    # one env per SM: no other warp to switch to, so this is one env's
+    # chain of dependent phases, what bounds the kernel from below
+    x_sm = first_envs(x, n_sm)
+    k1_sm_ms = cuda_ms(torch, lambda: pb.control_step(*step_args, *x_sm),
+                       TIME_LAUNCHES, 3)
     bound_ms, t_ops, t_bytes, flops, nbytes = bound(
         cuda_step, m, cfg.control.decimation, env.cparams.iterations, False)
     emit({"phase": "time", "k1_ms": k1_ms, "plain_ms": plain_ms,
+          "k1_ms_one_env_per_sm": k1_sm_ms, "envs_one_per_sm": n_sm,
           "flops_per_env": flops, "bytes_per_env": nbytes,
           "bound_ms": bound_ms, "ops_ms": t_ops, "bytes_ms": t_bytes,
-          "seconds": time.time() - t0})
+          "ptxas": ptxas["K1"], "seconds": time.time() - t0})
 
     # ---- 5. the main path: play's loop at full width ----
     t0 = time.time()

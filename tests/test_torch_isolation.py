@@ -5,15 +5,21 @@ runner and the terrain included) and chip_smoke import, the go2 env builds
 on the CPU at N=4 and steps once, and its PPO runner builds and acts; the
 go2_handstand env of the robustness fine-tune (its DR on) builds and
 resets, and the fine-tune's runner (its PPO knobs on) takes the shipped
-weights, sets its anchor and acts; and the 2-rank dryrun runs with the same
-imports refused in the parent and in both spawned ranks."""
+weights, sets its anchor and acts; and the 2-rank dryrun runs on the CPU
+(``--device=cpu``; its default is the card) with the same imports refused in
+the parent and in both spawned ranks. Without CUDA the dryrun's default
+raises instead of running on the CPU."""
 
 import os
 import subprocess
 import sys
 import textwrap
 
+import pytest
+import torch
+
 from unitree_rl_gym_tpu_torch import UNITREE_RL_GYM_TPU_ROOT_DIR
+from unitree_rl_gym_tpu_torch.parallel import dryrun
 
 SCRIPT = textwrap.dedent(
     """
@@ -88,15 +94,32 @@ def test_parallel_ranks_run_without_jax(tmp_path):
     """The multi-rank path (``parallel/``, and the rank entry that
     ``mesh.spawn_ranks`` starts in fresh interpreters) imports no jax: a
     ``sitecustomize`` that refuses the JAX packages is on the path of the
-    parent and of both spawned ranks, which run the 2-rank dryrun."""
+    parent and of both spawned ranks, which run the 2-rank dryrun on the
+    CPU."""
     refuse = SCRIPT[:SCRIPT.index("import torch")]
     (tmp_path / "sitecustomize.py").write_text(refuse)
     res = subprocess.run(
         [sys.executable, "-m", "unitree_rl_gym_tpu_torch.parallel.dryrun",
-         "--world_size", "2"],
+         "--world_size", "2", "--device=cpu"],
         cwd=UNITREE_RL_GYM_TPU_ROOT_DIR, capture_output=True, text=True,
         timeout=300, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
             (str(tmp_path), UNITREE_RL_GYM_TPU_ROOT_DIR))),
     )
     assert res.returncode == 0, res.stderr[-4000:]
     assert "go2-flat-mlp: n_devices=2 num_envs=8 OK" in res.stdout
+
+
+def test_dryrun_defaults_to_the_card(monkeypatch):
+    """Without CUDA, the dryrun's entry point and its rank raise rather than
+    run on the CPU; only ``--device=cpu`` puts it there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spawned = []
+    monkeypatch.setattr("unitree_rl_gym_tpu_torch.parallel.mesh.spawn_ranks",
+                        lambda *a, **k: spawned.append(a))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--world_size", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.dryrun_rank()
+    assert not spawned
+    dryrun.main(["--world_size", "2", "--device=cpu"])
+    assert spawned == [(dryrun.dryrun_rank, 2, ("cpu", None))]

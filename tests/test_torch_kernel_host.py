@@ -1,6 +1,7 @@
 """The per-env body of kernels K1, K3 and K2 (csrc/control_step.cuh, the
-code the CUDA kernels run per thread) compiled for the host with g++ -O1
-into pytest's tmp dir and held against the port's plain version at N=8, at
+warp schedule the CUDA kernels run, one warp per env) compiled for the host
+with g++ -O1 into pytest's tmp dir, each phase a loop over the 32 lanes,
+and held against the port's plain version at N=8, at
 the physics tolerance of tests/test_torch_physics.py: K1 (``HAS_GH=false``)
 grounded and airborne on the plane, K3 (``HAS_GH=true``) standing on the
 tiny heightfield of tests/test_pallas_terrain.py, its end-of-step point xy
@@ -8,7 +9,11 @@ tiny heightfield of tests/test_pallas_terrain.py, its end-of-step point xy
 stiffnesses from 0.25 to 3.0: on the plane at the go2 handstand's sizes
 (79 contact points, decimation 5, torques not clipped), grounded, and on
 the tiny heightfield at go2's. With every stiffness 1, K2's host body
-gives K1's bits. This catches kernel math errors on machines without a
+gives K1's bits. The lanes' order within a phase changes no bit (no phase
+reads what another lane of it writes); the warp's scratch fits the launch's
+shared memory; and the level tables that schedule the tree recursions and
+the Cholesky factor and solves follow the tree and the plain version's
+factor. This catches kernel math and schedule errors on machines without a
 GPU; it is never a runtime path.
 
 The ``cuda``-marked tests hold the real kernels against the plain version
@@ -31,6 +36,7 @@ from unitree_rl_gym_tpu_torch.envs.base_env import LeggedEnv
 from unitree_rl_gym_tpu_torch.physics import backend as pb
 from unitree_rl_gym_tpu_torch.physics import cuda_step
 from unitree_rl_gym_tpu_torch.physics import engine as eng
+from unitree_rl_gym_tpu_torch.physics import soa
 
 N = 8
 STATE_FIELDS = ("base_pos", "base_quat", "joint_q", "v")
@@ -150,20 +156,25 @@ def env():
     return LeggedEnv(cfg, device="cpu")
 
 
-def build_host_lib(m, out_dir):
-    """g++ -O1 build of csrc/host_harness.cpp for the sizes of SoAModel ``m``."""
+def build_host_lib(m, out_dir, defines=()):
+    """g++ -O1 build of csrc/host_harness.cpp for the sizes of SoAModel
+    ``m`` (``defines``: extra -D flags)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
     so = os.path.join(str(out_dir), "libk1_host.so")
     subprocess.run(
         [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", *cuda_step.size_defines(m),
-         "-I", cuda_step.CSRC_DIR, "-o", so,
+         *defines, "-I", cuda_step.CSRC_DIR, "-o", so,
          os.path.join(cuda_step.CSRC_DIR, "host_harness.cpp")],
         check=True, capture_output=True, timeout=300,
     )
     lib = ctypes.CDLL(so)
     lib.utrl_model_bytes.restype = ctypes.c_longlong
+    lib.utrl_scratch_bytes.restype = ctypes.c_longlong
+    lib.utrl_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.utrl_envs_per_block.restype = ctypes.c_int
+    lib.utrl_blocks_per_sm_asked.restype = ctypes.c_int
     lib.utrl_control_step_host.restype = ctypes.c_int
     lib.utrl_control_step_host.argtypes = (
         [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15)
@@ -217,6 +228,106 @@ def host_lib(env, tmp_path_factory):
 def test_model_tables_match_struct(env, host_lib):
     _, tables = env_tables(env)
     assert len(tables) == host_lib.utrl_model_bytes()
+
+
+@pytest.mark.parametrize("task", ["go2", "go2_handstand"])
+def test_tree_levels_follow_parent(env, hs_env, task):
+    """Every body's parent sits on the level above it, in the depths, in the
+    depth masks and in the bodies listed by depth; each body's children are
+    the bodies whose parent it is; and the packed tables end with the
+    schedule's fields."""
+    e = env if task == "go2" else hs_env
+    m, tables = env_tables(e)
+    depth = cuda_step.tree_levels(m)
+    assert depth[0] == 0 and m.parent[0] == -1
+    for i in range(1, m.nb):
+        assert depth[i] == depth[m.parent[i]] + 1, i
+    (depth_mask, n_depth, child_mask, cp_dyn, _, _, _, _, _, depth_body,
+     depth_first, rb_pt, rb_start, rb_end) = cuda_step.schedule_tables(m)
+    assert n_depth == [depth.max() + 1]
+    level_of = {i: d for d in range(n_depth[0]) for i in range(m.nb)
+                if int(depth_mask[d]) >> i & 1}
+    assert sorted(level_of) == list(range(m.nb))
+    for i in range(1, m.nb):
+        assert level_of[m.parent[i]] == level_of[i] - 1, i
+        assert int(child_mask[m.parent[i]]) >> i & 1, i
+    assert sum(bin(int(c)).count("1") for c in child_mask) == m.nb - 1
+    for d in range(n_depth[0]):
+        n_d = bin(int(depth_mask[d])).count("1")
+        assert list(depth_body[depth_first[d]:depth_first[d] + n_d]) == [
+            i for i in range(m.nb) if depth[i] == d]
+    assert list(cp_dyn) == list(np.repeat(np.arange(m.nb),
+                                          [b - a for a, b in m.cp_slice]))
+    for r, idx in enumerate(m.cp_rb):
+        assert list(rb_pt[rb_start[r]:rb_end[r]]) == sorted(idx), r
+    tail = np.concatenate([np.asarray(a).astype(np.uint32)
+                           for a in cuda_step.schedule_tables(m)])
+    np.testing.assert_array_equal(
+        np.frombuffer(tables, np.uint32)[-tail.size:], tail)
+
+
+@pytest.mark.parametrize("task", ["go2", "go2_handstand"])
+def test_chol_levels_cover_the_plain_factor(env, hs_env, task):
+    """Every entry the plain version's factor keeps (``soa.chol_factor_s``
+    emits no structural zero) is in the kernel's pattern and joins a lower
+    level to a higher one, both ways, so the kernel's level-by-level sums
+    hold every term the plain version's do."""
+    e = env if task == "go2" else hs_env
+    m = pb.soa_model_for(e.robot.dyn)
+    x = make_inputs(e.default_dof_pos.numpy(), N, True, seed=3)
+    t = {k: list(torch.from_numpy(x[k]).T) for k in STATE_FIELDS}
+    _, _, E_up, _ = soa.fk_s(m, t["base_pos"], t["base_quat"], t["joint_q"], t["v"])
+    L, _, _ = soa.chol_factor_s(soa.crba_s(m, E_up, torch.from_numpy(x["mass_scale"])),
+                                m.chol_order)
+    nz = cuda_step.chol_pattern(m)
+    fwd, bwd = cuda_step.chol_levels(m)
+    assert len(L) > m.nv
+    for i, j in L:
+        assert nz[i, j], (i, j)
+        if i > j:
+            assert fwd[j] < fwd[i] and bwd[i] < bwd[j], (i, j)
+
+
+# the H100's shared memory (CUDA C++ Programming Guide, compute capability
+# 9.0): 228 KB an SM, at most 227 KB a block, 1 KB reserved per resident block
+SMEM_PER_SM = 228 * 1024
+SMEM_PER_BLOCK = 227 * 1024
+SMEM_RESERVED_PER_BLOCK = 1024
+
+
+def test_scratch_fits_shared_memory(host_lib, hs_host_lib):
+    """The build exports one warp's scratch and the launch's shape, and the
+    blocks that the kernel's __launch_bounds__ asks for fit an H100 SM's
+    shared memory at go2's sizes (K1, K3, K2 on terrain) and the
+    handstand's (K2 flat, 79 points): within the 227 KB a block may use,
+    and as many resident at once as asked, which holds 4096 envs on 132
+    SMs. What the card's runtime grants is gated by chip_smoke.py."""
+    sizes = [host_lib.utrl_scratch_bytes(0), host_lib.utrl_scratch_bytes(1),
+             hs_host_lib.utrl_scratch_bytes(0)]
+    assert sizes[0] < sizes[1] and sizes[0] < sizes[2]
+    per_block = host_lib.utrl_envs_per_block()
+    asked = host_lib.utrl_blocks_per_sm_asked()
+    assert asked * per_block * 132 >= 4096, (asked, per_block)
+    for b in sizes:
+        block = per_block * b
+        assert b % 4 == 0 and block <= SMEM_PER_BLOCK, b
+        assert asked * (block + SMEM_RESERVED_PER_BLOCK) <= SMEM_PER_SM, b
+
+
+def test_lane_order_changes_no_bit(env, terrain_env, host_lib, tmp_path):
+    """Each phase's lanes run in reverse in a second host build: K1, K3 and
+    K2 give the same bits, so no phase reads what another lane of it
+    writes (on the card the lanes of a phase run at once)."""
+    rev = build_host_lib(pb.soa_model_for(env.robot.dyn), tmp_path,
+                         ("-DUTRL_HOST_LANES_REVERSED",))
+    cases = [(env, make_inputs(env.default_dof_pos.numpy(), N, True, seed=8)),
+             (terrain_env, terrain_inputs(terrain_env, N, seed=8)),
+             (terrain_env, dict(terrain_inputs(terrain_env, N, seed=9), cstiff=CSTIFF))]
+    for e, x in cases:
+        a = host_step(host_lib, *env_tables(e), x)
+        b = host_step(rev, *env_tables(e), x)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 @pytest.fixture(scope="module")

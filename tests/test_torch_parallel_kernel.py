@@ -4,11 +4,26 @@
 ranks, so no process group is needed) and concatenated, against the JAX
 package's ``pallas_step.control_step_pallas_sharded`` in interpret mode on a
 2-device ("env",) mesh of the suite's virtual CPU devices, at N=16 (8 envs
-per shard): go2 on flat ground, go2 on the tiny heightfield with ``gh``
-(``p_xy`` included, sharded on axis 1), and the go2 handstand's model with
-per-env contact stiffnesses ``cstiff``. Tolerance: the physics bar of
+per shard, the smallest batch the kernel's (8, N/8) tiles split in two):
+go2 on flat ground, go2 on the tiny heightfield with ``gh`` (``p_xy``
+included, sharded on axis 1), and go2 on the heightfield with per-env
+contact stiffnesses ``cstiff``. Tolerance: the physics bar of
 tests/test_torch_physics.py (atol 5e-5 / rtol 1e-4 on state and p_xy, aux
-/ max(|aux|, 1) within 5e-4). Each case compiles one JAX program.
+/ max(|aux|, 1) within 5e-4). The three cases share one jitted JAX program,
+the kernel's ``gh`` and ``cstiff`` variant (one Pallas-interpreter compile):
+the flat case passes gh = 0 and every case without stiffnesses cstiff = 1,
+which the kernel computes exactly as its variants without them
+((radius + 0) - z = radius - z, and bias x 1 = bias).
+
+What this module does not hold, and where that is held unsharded: the
+kernel's flat variant (no ``gh``, no ``cstiff``) against the port's plain
+version in tests/test_torch_physics_pallas.py (go2, N=8), and the
+handstand's sizes (79 contact points, decimation 5, torques not clipped)
+with per-env stiffnesses in tests/test_torch_physics_cstiff_pallas.py. A
+block's launch equals its rows of the one-process launch (the part that
+sharding adds) in tests/test_torch_parallel_cuda.py, for go2 flat, go2 on
+terrain and the handstand with stiffnesses: the plain version's blocks on
+the CPU, the K1, K3 and K2 instances' on the card.
 
 ``parallel.mesh.shard_env_state`` slices the row-layout fields ``gh`` and
 ``p_xy`` on axis 1 by name, contiguously, and every other batched field on
@@ -21,11 +36,10 @@ import pytest
 import torch
 
 from tests.test_torch_kernel_host import (  # noqa: F401
-    AUX_KEYS, POSITION_KEYS, STATE_FIELDS, assert_close, handstand_inputs,
-    make_inputs, terrain_env, terrain_inputs, tiny_terrain,
+    AUX_KEYS, CSTIFF, POSITION_KEYS, STATE_FIELDS, assert_close, make_inputs,
+    terrain_env, terrain_inputs, tiny_terrain,
 )
 from tests.test_torch_physics import envs, jax_args, jax_flat  # noqa: F401
-from tests.test_torch_physics_cstiff import hs_envs  # noqa: F401
 from unitree_rl_gym_tpu.parallel import mesh as jmesh
 from unitree_rl_gym_tpu.physics import pallas_step
 from unitree_rl_gym_tpu_torch.envs.go2 import go2_rough_cfg
@@ -39,20 +53,35 @@ N_GLOBAL = 16
 WORLD = 2
 
 
-def jax_sharded(side, x, **opt):
-    """JAX K4 in interpret mode on a 2-device mesh; numpy outputs."""
+@pytest.fixture(scope="module")
+def jax_sharded(envs):  # noqa: F811
+    """JAX K4 (go2) in interpret mode on a 2-device mesh with ``gh`` and
+    ``cstiff``, jitted once for the module: ``run(x, gh=None, cstiff=None)``
+    gives numpy outputs, gh = 0 and cstiff = 1 where not given."""
     if len(jax.devices()) < WORLD:
         pytest.skip("needs 2 (virtual) devices")
+    side = envs[0]
     cfg = side.cfg
-    state, aux = pallas_step.control_step_pallas_sharded(
-        side.robot.dyn, side.cparams, side.pd, cfg.sim.dt,
-        cfg.control.decimation, *jax_args(x), side.m_eff_n, side.m_eff_t,
-        mesh=jmesh.make_mesh(WORLD), interpret=True,
-        **{k: jnp.asarray(v) for k, v in opt.items()})
-    out = jax_flat(state, aux)
-    if "p_xy" in aux:
+    mesh = jmesh.make_mesh(WORLD)
+
+    @jax.jit
+    def step(state, target, friction, mass_scale, gh, cstiff):
+        return pallas_step.control_step_pallas_sharded(
+            side.robot.dyn, side.cparams, side.pd, cfg.sim.dt,
+            cfg.control.decimation, state, target, friction, mass_scale,
+            side.m_eff_n, side.m_eff_t, mesh=mesh, interpret=True, gh=gh,
+            cstiff=cstiff)
+
+    def run(x, gh=None, cstiff=None):
+        n = x["joint_q"].shape[0]
+        gh = np.zeros((68, n), np.float32) if gh is None else gh
+        cstiff = np.ones(n, np.float32) if cstiff is None else cstiff
+        state, aux = step(*jax_args(x), jnp.asarray(gh), jnp.asarray(cstiff))
+        out = jax_flat(state, aux)
         out["p_xy"] = np.asarray(aux["p_xy"])
-    return out
+        return out
+
+    return run
 
 
 def port_per_block(env, x):
@@ -78,36 +107,37 @@ def port_per_block(env, x):
             for k in outs[0]}
 
 
-def test_flat_blocks_match_jax_sharded(envs):  # noqa: F811
+def test_flat_blocks_match_jax_sharded(envs, jax_sharded):  # noqa: F811
     jenv, tenv, _ = envs
     x = make_inputs(np.asarray(jenv.default_dof_pos), N_GLOBAL, grounded=True,
                     seed=3)
     before = (cuda_step.LAUNCHES, cuda_step.LAUNCHES_SHARDED)
     got = port_per_block(tenv, x)
     assert (cuda_step.LAUNCHES, cuda_step.LAUNCHES_SHARDED) == before
-    ref = jax_sharded(jenv, x)
+    ref = jax_sharded(x)
     assert float(np.abs(got["cf_rb"]).max()) > 1.0
     assert_close(ref, got, STATE_FIELDS + AUX_KEYS)
 
 
-def test_terrain_blocks_match_jax_sharded(envs, terrain_env):  # noqa: F811
-    jenv, _, _ = envs
+def test_terrain_blocks_match_jax_sharded(terrain_env, jax_sharded):  # noqa: F811
     x = terrain_inputs(terrain_env, N_GLOBAL, seed=5)
     got = port_per_block(terrain_env, x)
     assert got["p_xy"].shape == (2 * 68, N_GLOBAL)
     assert float(np.abs(x["gh"]).max()) > 0.01
     gh = x.pop("gh")
-    ref = jax_sharded(jenv, x, gh=gh)
+    ref = jax_sharded(x, gh=gh)
     assert_close(ref, got, POSITION_KEYS + AUX_KEYS)
 
 
-def test_cstiff_blocks_match_jax_sharded(hs_envs):  # noqa: F811
-    jside, tenv = hs_envs
-    x = handstand_inputs(tenv, N_GLOBAL, seed=6)
-    got = port_per_block(tenv, x)
-    cs = x.pop("cstiff")
-    ref = jax_sharded(jside, x, cstiff=cs)
-    assert_close(ref, got, STATE_FIELDS + AUX_KEYS)
+def test_cstiff_blocks_match_jax_sharded(terrain_env, jax_sharded):  # noqa: F811
+    """Per-env stiffnesses from 0.25 to 3.0 (tests/test_torch_kernel_host.py's
+    CSTIFF) on the heightfield; each block's ``cstiff`` is its rows."""
+    x = dict(terrain_inputs(terrain_env, N_GLOBAL, seed=6),
+             cstiff=np.resize(CSTIFF, N_GLOBAL))
+    got = port_per_block(terrain_env, x)
+    gh, cs = x.pop("gh"), x.pop("cstiff")
+    ref = jax_sharded(x, gh=gh, cstiff=cs)
+    assert_close(ref, got, POSITION_KEYS + AUX_KEYS)
 
 
 def test_block_of_the_wrong_size_raises(envs):  # noqa: F811

@@ -81,10 +81,22 @@ def reference(case, path):
             "minibatches": seen["records"]}
 
 
+# each case's runs, by case: the nan test's indirect parametrization sets
+# the fixture up again, and it must not spawn the ranks a second time
+_RUNS = {}
+
+
 @pytest.fixture(scope="module", params=CASES)
 def runs(request, tmp_path_factory):
     case = request.param
-    tmp = tmp_path_factory.mktemp(f"dp_{case}")
+    if case not in _RUNS:
+        _RUNS[case] = _run(case, tmp_path_factory.mktemp(f"dp_{case}"))
+    return _RUNS[case]
+
+
+def _run(case, tmp):
+    """The one-process reference and the 2 ranks' runs of ``case`` in
+    ``tmp``: (case, reference records, the ranks' records)."""
     ref_path = str(tmp / "reference.pt")
     ref = reference(case, ref_path)
     port = _free_port()

@@ -1,5 +1,5 @@
 // Kernel K2: the decimated physics control step with a per-env contact
-// stiffness, on flat ground and on heightfield terrain, one thread per env,
+// stiffness, on flat ground and on heightfield terrain, one warp per env,
 // for Hopper (nvcc -gencode arch=compute_90a,code=sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernel
@@ -8,7 +8,7 @@
 // `cs` block of pallas_step.py:102-103, :133, :251-252), with and without
 // terrain heights (has_gh). It is the HAS_CS = true pair of instances of
 // the per-env template of K1 and K3 (control_step.cuh): each env reads its
-// scale cs once per control step into a register and multiplies every
+// scale cs once per control step into its scratch and multiplies every
 // contact point's de-penetration bias by it, after the bias's clamp to
 // max_depenetration_velocity (the JAX order). With cs = 1 the product is
 // exact and K2 returns K1's (or K3's) bits.
@@ -19,13 +19,11 @@
 // cs=True); at the go2 handstand's sizes (79 contact points, decimation 5)
 // that is 0.37 MFLOP per env, 1.5 GFLOP at 4096 envs, ~23 us at 67 TFLOP/s
 // fp32, against 5.9 MB of state in and out, ~2 us at 3.35 TB/s. The design
-// is K1's (one thread per env, the working set in local memory; see
-// control_step.cu) and is as far from the bound (on an H100 80GB HBM3 at
-// 700 W, measured by chip_smoke.py at 4096 handstand envs: 2.14 ms per
-// launch, ~95x the bound, K1 on the same inputs 2.12 ms; ptxas: 255
-// registers, a 7.8 KB stack frame, ~0.3 KB above go2's 68 points).
-// Spreading the points across a warp is the redesign it shares with K1
-// and K3.
+// is K1's warp per env with its scratch in shared memory (control_step.cu;
+// ~6.7 KB a warp at 79 points; chip_smoke.py's phase `time_cs` prints the
+// resident blocks per SM that the runtime grants).
+// The one-thread-per-env form it replaces took 2.14 ms per launch at 4096
+// handstand envs (H100 80GB HBM3, 700 W; PERF.md §6).
 //
 // Built by physics/cuda_step.py into its own shared library with a plain C
 // interface (loaded with ctypes), in parallel with control_step.cu's.
@@ -33,12 +31,15 @@
 
 #include "control_step.cuh"
 
-extern "C" long long utrl_model_bytes(void) {
-    return (long long)sizeof(ModelTables);
+// resident blocks per SM of the flat (terrain = 0) or terrain instance on
+// the current device; a CUDA error as its negative
+extern "C" int utrl_resident_blocks(int terrain) {
+    return terrain ? utrl_resident_blocks_of<true, true>()
+                   : utrl_resident_blocks_of<false, true>();
 }
 
 // K2 on flat ground: K1's operands plus cstiff [n_envs]. Launches on
-// `stream` and returns cudaGetLastError(); synchronizes nothing.
+// `stream` and returns the first CUDA error; synchronizes nothing.
 extern "C" int utrl_control_step_cs(
     const void* model, int n_envs,
     const float* bp, const float* bq, const float* q, const float* v,
@@ -46,14 +47,10 @@ extern "C" int utrl_control_step_cs(
     const float* cstiff,
     float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
     float* cf_out, float* rbp_out, float* rbv_out, void* stream) {
-    if (n_envs <= 0) return 0;
-    const int blocks = (n_envs + kUtrlThreads - 1) / kUtrlThreads;
-    utrl_control_step_kernel<false, true>
-        <<<blocks, kUtrlThreads, 0, (cudaStream_t)stream>>>(
-            (const ModelTables*)model, n_envs, bp, bq, q, v, target, friction,
-            mass_scale, nullptr, cstiff, bp_out, bq_out, q_out, v_out,
-            tau_out, cf_out, rbp_out, rbv_out, nullptr);
-    return (int)cudaGetLastError();
+    return utrl_launch<false, true>(
+        model, n_envs, bp, bq, q, v, target, friction, mass_scale, nullptr,
+        cstiff, bp_out, bq_out, q_out, v_out, tau_out, cf_out, rbp_out,
+        rbv_out, nullptr, stream);
 }
 
 // K2 on terrain: K3's operands plus cstiff [n_envs].
@@ -65,12 +62,8 @@ extern "C" int utrl_control_step_terrain_cs(
     float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
     float* cf_out, float* rbp_out, float* rbv_out, float* pxy_out,
     void* stream) {
-    if (n_envs <= 0) return 0;
-    const int blocks = (n_envs + kUtrlThreads - 1) / kUtrlThreads;
-    utrl_control_step_kernel<true, true>
-        <<<blocks, kUtrlThreads, 0, (cudaStream_t)stream>>>(
-            (const ModelTables*)model, n_envs, bp, bq, q, v, target, friction,
-            mass_scale, gh, cstiff, bp_out, bq_out, q_out, v_out, tau_out,
-            cf_out, rbp_out, rbv_out, pxy_out);
-    return (int)cudaGetLastError();
+    return utrl_launch<true, true>(
+        model, n_envs, bp, bq, q, v, target, friction, mass_scale, gh, cstiff,
+        bp_out, bq_out, q_out, v_out, tau_out, cf_out, rbp_out, rbv_out,
+        pxy_out, stream);
 }

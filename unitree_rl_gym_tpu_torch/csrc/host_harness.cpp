@@ -1,12 +1,16 @@
 // Host build of the per-env body of kernels K1, K3 and K2
 // (control_step.cuh), for tests on machines without a GPU: g++ -O1 -shared
-// -fPIC, loaded with ctypes. It runs the same arithmetic as the CUDA
-// kernels, one env after another. Never a runtime path of the port.
-#include "control_step.cuh"
+// -fPIC, loaded with ctypes. It runs the kernel's warp schedule with each
+// phase a loop over the 32 lanes, one env after another, on a scratch
+// filled with NaN before every env (a read of anything no phase wrote
+// shows in the outputs). -DUTRL_HOST_LANES_REVERSED runs each phase's lanes
+// in reverse. Never a runtime path of the port.
+#include <math.h>
+#include <string.h>
 
-extern "C" long long utrl_model_bytes(void) {
-    return (long long)sizeof(ModelTables);
-}
+#include <memory>
+
+#include "control_step.cuh"
 
 // The instance <HAS_GH, HAS_CS> over every env; gh and cstiff may be null
 // where the instance does not read them.
@@ -18,11 +22,15 @@ static int run(const void* model, int n_envs, const float* bp, const float* bq,
                float* v_out, float* tau_out, float* cf_out, float* rbp_out,
                float* rbv_out, float* pxy_out) {
     const ModelTables& M = *(const ModelTables*)model;
-    for (int n = 0; n < n_envs; ++n)
+    std::unique_ptr<UtrlScratch<HAS_GH>> s(new UtrlScratch<HAS_GH>);
+    for (int n = 0; n < n_envs; ++n) {
+        float* words = reinterpret_cast<float*>(s.get());
+        for (size_t i = 0; i < sizeof(*s) / sizeof(float); ++i) words[i] = NAN;
         utrl_control_step_env<HAS_GH, HAS_CS>(
-            M, n, n_envs, bp, bq, q, v, target, friction, mass_scale, gh,
+            M, *s, n, n_envs, bp, bq, q, v, target, friction, mass_scale, gh,
             cstiff, bp_out, bq_out, q_out, v_out, tau_out, cf_out, rbp_out,
             rbv_out, pxy_out);
+    }
     return 0;
 }
 

@@ -11,8 +11,10 @@ JAX dryrun prints::
 
     python -m unitree_rl_gym_tpu_torch.parallel.dryrun --world_size 2
 
-It runs on the CPU over gloo by default; ``--device=cuda`` puts every rank
-on the card(s) (``--dist_backend=gloo`` when they share one). The JAX
+It runs on the card(s) by default, NCCL with a card per rank
+(``--dist_backend=gloo`` when ranks share one, as ``init_process_group``
+rules); without CUDA it raises. ``--device=cpu`` runs every rank on the
+CPU over gloo. The JAX
 dryrun's second class, g1 on terrain with the LSTM policy, waits for the
 humanoids and the recurrent policy."""
 
@@ -35,14 +37,16 @@ def replica_state(runner):
     return torch.cat([p.to(parts[0].device) for p in parts])
 
 
-def dryrun_rank(device: str = "cpu", backend=None, envs_per_rank: int = 4):
+def dryrun_rank(device=None, backend=None, envs_per_rank: int = 4):
     """One rank of the dryrun (started by :func:`main` through
-    ``mesh.spawn_ranks``, or by torchrun)."""
+    ``mesh.spawn_ranks``, or by torchrun); ``device`` None is the card,
+    and raises without one."""
+    from unitree_rl_gym_tpu_torch import resolve_device
     from unitree_rl_gym_tpu_torch.envs.registry import task_registry
     from unitree_rl_gym_tpu_torch.parallel import mesh as pmesh
     from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
 
-    dev = pmesh.init_process_group(device, backend=backend)
+    dev = pmesh.init_process_group(resolve_device(device).type, backend=backend)
     world = torch.distributed.get_world_size()
     n_global = envs_per_rank * world
     cfg, tcfg = task_registry.get_cfgs("go2")
@@ -72,14 +76,16 @@ def dryrun_rank(device: str = "cpu", backend=None, envs_per_rank: int = 4):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--world_size", type=int, default=2)
-    p.add_argument("--device", type=str, default="cpu")
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (the default) or cpu")
     p.add_argument("--dist_backend", type=str, default=None,
                    choices=("nccl", "gloo"))
     args = p.parse_args(argv)
+    from unitree_rl_gym_tpu_torch import resolve_device
     from unitree_rl_gym_tpu_torch.parallel.mesh import spawn_ranks
 
-    spawn_ranks(dryrun_rank, args.world_size,
-                (args.device, args.dist_backend))
+    device = resolve_device(args.device).type
+    spawn_ranks(dryrun_rank, args.world_size, (device, args.dist_backend))
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ has_cs=False``), K3 its terrain variant (``has_gh=True``), K2 its
 contact-stiffness variant (``has_cs=True``, with or without ``has_gh``);
 K4 replaces ``control_step_pallas_sharded``, which runs one instance of
 the kernel per device of the ("env",) mesh on its local env block.
-The per-env body is ``csrc/control_step.cuh`` (one thread per env, one
-template, ``HAS_GH`` x ``HAS_CS``); the notes at the top of
+The per-env body is ``csrc/control_step.cuh`` (one warp per env, its
+working set in the warp's slice of shared memory; one template, ``HAS_GH``
+x ``HAS_CS``), scheduled by the level tables :func:`model_tables` appends
+(:func:`schedule_tables`); the notes at the top of
 ``csrc/control_step.cu`` (K1, K3) and ``csrc/control_step_cs.cu`` (K2) say
 what bounds them on the H100 and what the design does about it;
 :func:`flops_per_env` and :func:`bytes_per_env` give the arithmetic behind
@@ -92,6 +94,116 @@ def size_defines(m: soa.SoAModel) -> Tuple[str, ...]:
     return (f"-DUTRL_NB={m.nb}", f"-DUTRL_NCP={m.ncp}", f"-DUTRL_NRB={m.nrb}")
 
 
+def tree_levels(m: soa.SoAModel) -> np.ndarray:
+    """Depth of every body in the kinematic tree (base 0): the levels by
+    which the kernel's tree recursions run, one level a phase. Bodies come
+    after their parents (``parent[i] < i``), as the recursions assume."""
+    depth = np.zeros(m.nb, np.int32)
+    for i in range(1, m.nb):
+        if not 0 <= m.parent[i] < i:
+            raise ValueError(f"body {i}'s parent {m.parent[i]} does not precede it")
+        depth[i] = depth[m.parent[i]] + 1
+    return depth
+
+
+def chol_pattern(m: soa.SoAModel) -> np.ndarray:
+    """Structural nonzeros of the Cholesky factor of H in elimination order
+    (lower triangle, fill included): what CRBA writes (the base block, each
+    joint with the base and with its chain's joints), closed under
+    elimination."""
+    nv = m.nv
+    pos = np.empty(nv, np.int64)
+    pos[np.asarray(m.chol_order)] = np.arange(nv)
+    nz = np.zeros((nv, nv), bool)
+
+    def mark(a, b):
+        i, j = pos[a], pos[b]
+        nz[max(i, j), min(i, j)] = True
+
+    for r in range(6):
+        for c in range(6):
+            mark(r, c)
+    for i in range(1, m.nb):
+        j = i - 1
+        for r in range(6):
+            mark(6 + j, r)
+        k = i
+        while k != 0:
+            mark(6 + j, 6 + k - 1)
+            k = m.parent[k]
+    for k in range(nv):
+        rows = np.nonzero(nz[k + 1:, k])[0] + k + 1
+        for a in rows:
+            nz[a, rows[rows <= a]] = True
+    return nz
+
+
+def chol_levels(m: soa.SoAModel) -> Tuple[np.ndarray, np.ndarray]:
+    """(forward, backward) elimination-tree level of every position: an
+    entry's level is one more than the largest level of the entries its
+    sum needs (forward: the columns k < i with L[i][k] a structural
+    nonzero; backward: the rows k > i with L[k][i] one). The kernel's factor
+    and solves run the joints' levels one a phase."""
+    nz = chol_pattern(m)
+    nv = m.nv
+    fwd = np.zeros(nv, np.int32)
+    for i in range(nv):
+        deps = np.nonzero(nz[i, :i])[0]
+        fwd[i] = 1 + fwd[deps].max() if deps.size else 0
+    bwd = np.zeros(nv, np.int32)
+    for i in range(nv - 1, -1, -1):
+        deps = np.nonzero(nz[i + 1:, i])[0] + i + 1
+        bwd[i] = 1 + bwd[deps].max() if deps.size else 0
+    return fwd, bwd
+
+
+def _bits(sets, n) -> np.ndarray:
+    """[n] uint32: entry i has bit k set for every k of sets[i]."""
+    out = np.zeros(n, np.uint32)
+    for i, ks in enumerate(sets):
+        for k in ks:
+            out[i] |= np.uint32(1 << int(k))
+    return out
+
+
+def schedule_tables(m: soa.SoAModel) -> list:
+    """The warp schedule's fields of ``ModelTables``, in order: bodies by
+    depth, the depth count, each body's children, each point's body, L's
+    row and column patterns, positions by forward and backward level, the
+    two level counts (sets as bit masks); the bodies listed by depth with
+    each depth's first entry, and the points listed by report body with
+    each report body's [start, end)."""
+    nb, nv = m.nb, m.nv
+    if nb > 32 or nv > 32:
+        raise ValueError(f"{nb} bodies / {nv} dofs: the tables hold 32 bits")
+    depth = tree_levels(m)
+    nz = chol_pattern(m)
+    fwd, bwd = chol_levels(m)
+    cp_dyn = np.zeros(m.ncp, np.int32)
+    for b, (s, e) in enumerate(m.cp_slice):
+        cp_dyn[s:e] = b
+    cp_rb = np.zeros(m.ncp, np.int32)
+    for r, idx in enumerate(m.cp_rb):
+        cp_rb[list(idx)] = r
+    return [
+        _bits([np.nonzero(depth == d)[0] for d in range(depth.max() + 1)], nb),
+        [depth.max() + 1],
+        _bits([[c for c in range(nb) if m.parent[c] == i] for i in range(nb)], nb),
+        cp_dyn,
+        _bits([np.nonzero(nz[i, :i])[0] for i in range(nv)], nv),
+        _bits([np.nonzero(nz[i + 1:, i])[0] + i + 1 for i in range(nv)], nv),
+        _bits([np.nonzero(fwd == lv)[0] for lv in range(fwd.max() + 1)], nv),
+        _bits([np.nonzero(bwd == lv)[0] for lv in range(bwd.max() + 1)], nv),
+        [fwd.max() + 1, bwd.max() + 1],
+        np.argsort(depth, kind="stable"),
+        np.pad(np.searchsorted(np.sort(depth), np.arange(depth.max() + 1)),
+               (0, nb - depth.max() - 1)),
+        np.argsort(cp_rb, kind="stable"),
+        np.searchsorted(np.sort(cp_rb), np.arange(m.nrb)),
+        np.searchsorted(np.sort(cp_rb), np.arange(m.nrb), side="right"),
+    ]
+
+
 def model_tables(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
                  m_eff_n, m_eff_t) -> bytes:
     """Pack everything the kernel reads about the robot and the solver into
@@ -147,6 +259,7 @@ def model_tables(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
     return b"".join(
         [a.astype(np.int32).tobytes() for a in ints]
         + [np.asarray(a, np.float64).astype(np.float32).tobytes() for a in floats]
+        + [np.asarray(a).astype(np.uint32).tobytes() for a in schedule_tables(m)]
     )
 
 
@@ -233,9 +346,15 @@ def library_path(m: soa.SoAModel, library: str = "control_step") -> str:
 
 def build(m: soa.SoAModel, library: str = "control_step") -> str:
     """Compile ``library`` for this model's sizes unless a build with the
-    same sources and flags exists; returns the library path."""
+    same sources and flags exists; returns the library path. The nvcc
+    report (ptxas registers and spills) is kept beside the library and
+    read into :data:`BUILD_LOGS` either way."""
     path = library_path(m, library)
+    log = f"{path}.nvcc.log"
     if os.path.exists(path):
+        if os.path.exists(log):
+            with open(log) as f:
+                BUILD_LOGS[path] = f.read()
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -246,6 +365,8 @@ def build(m: soa.SoAModel, library: str = "control_step") -> str:
         raise RuntimeError(
             f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
         )
+    with open(log, "w") as f:
+        f.write(res.stderr)
     os.replace(tmp, path)
     BUILD_LOGS[path] = res.stderr
     return path
@@ -297,6 +418,12 @@ def _library(m: soa.SoAModel, library: str = "control_step") -> ctypes.CDLL:
             lib = ctypes.CDLL(build(m, library))
             lib.utrl_model_bytes.restype = ctypes.c_longlong
             lib.utrl_model_bytes.argtypes = []
+            lib.utrl_scratch_bytes.restype = ctypes.c_longlong
+            lib.utrl_scratch_bytes.argtypes = [ctypes.c_int]
+            lib.utrl_envs_per_block.restype = ctypes.c_int
+            lib.utrl_envs_per_block.argtypes = []
+            lib.utrl_resident_blocks.restype = ctypes.c_int
+            lib.utrl_resident_blocks.argtypes = [ctypes.c_int]
             for name, n_ptr in _ENTRY_POINTS[library].items():
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
@@ -304,6 +431,28 @@ def _library(m: soa.SoAModel, library: str = "control_step") -> ctypes.CDLL:
                                + [ctypes.c_void_p] * n_ptr)
             _LIBS[key] = lib
     return lib
+
+
+def scratch_bytes(m: soa.SoAModel, library: str = "control_step",
+                  terrain: bool = False) -> int:
+    """One warp's (one env's) shared-memory scratch in the build of
+    ``library`` for this model's sizes, with or without ``gh``."""
+    return int(_library(m, library).utrl_scratch_bytes(int(terrain)))
+
+
+def resident_envs(m: soa.SoAModel, library: str = "control_step",
+                  terrain: bool = False) -> Tuple[int, int]:
+    """(blocks, envs per block) of the instance of ``library`` (flat or
+    ``terrain``; K2's in ``control_step_cs``) that the current CUDA device
+    keeps resident on one SM at the launch's block size and shared memory,
+    as the CUDA runtime's occupancy calculator gives it. Raises on a CUDA
+    error."""
+    lib = _library(m, library)
+    blocks = int(lib.utrl_resident_blocks(int(terrain)))
+    if blocks < 0:
+        raise RuntimeError(f"{library}: occupancy query failed with CUDA error "
+                           f"{-blocks}")
+    return blocks, int(lib.utrl_envs_per_block())
 
 
 def _device_tables(lib, m, cparams, pd, sim_dt, decimation, m_eff_n, m_eff_t,
@@ -447,7 +596,7 @@ def control_step_sharded(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
     device. Every operand holds the block's ``n_local`` envs; ``gh`` is the
     block's contiguous [ncp, n_local] rows (a strided view of the global
     rows raises) and aux's ``p_xy`` comes back as [2*ncp, n_local]. Envs
-    are independent and the kernel runs one thread per env, so the outputs
+    are independent and the kernel runs one warp per env, so the outputs
     are the bits of the block's rows of a launch over all envs. Raises like
     K1's, and on a batch that is not the block's."""
     n = state.joint_q.shape[0]
