@@ -21,11 +21,13 @@ launch, bit for bit):
   2. build    every library from source with nvcc, all started together:
               csrc/control_step.cu (K1, K3) and csrc/control_step_cs.cu
               (K2) at go2's sizes and at the handstand's (79 contact
-              points); prints K1's and K3's ptxas report (registers, stack
-              frame, spills), one warp's shared-memory scratch and the
-              blocks per SM that the CUDA runtime's occupancy calculator
-              grants each instance; K1 and K3 must spill no register,
-              and their resident blocks must hold all 4096 envs at once;
+              points); prints every instance's ptxas report (registers,
+              stack frame, spills), the lanes per env, each instance's
+              shared-memory scratch per env and the blocks per SM that the
+              CUDA runtime's occupancy calculator grants it; no instance
+              of any library may spill a register, and the resident blocks
+              of every instance a path runs (K1, K3, K2 flat, K2 terrain,
+              K1 at the handstand's sizes) must hold all 4096 envs at once;
   3. compare  one control step through K1 (``backend.control_step``, the
               env's path) and through the plain version
               (``backend.control_step_soa``) at N=4096, from a fresh reset and
@@ -35,7 +37,12 @@ launch, bit for bit):
               only if one of its contact points sat within 1e-6 of the
               activation edge (|phi| < 1e-6) during that step, and at most
               0.1% of the envs (4 of 4096) may be excused; those envs are
-              counted and their largest errors printed;
+              counted and their largest errors printed. The largest state
+              error must be the earlier kernels' to the last bit
+              (``PARENT_MAX_ABS_ERR``), and one more launch over the first
+              4095 envs (its last warp one env short) must give the first
+              4095 rows of the 4096-env launch bit for bit (so for K3 and
+              K2 in phases 7 and 12);
   4. time     K1 and the plain version on the same inputs (CUDA events),
               beside K1's ptxas report; K1 also on the first envs only,
               one per SM (one env's chain of dependent phases);
@@ -51,7 +58,8 @@ launch, bit for bit):
               env (the go2 task with ``terrain.mesh_type = "heightfield"``
               and the terrain curriculum, as bench.py's go2_terrain), from
               the reset state and after 24 steps of the freshly initialised
-              policy, with K1's tolerance and excuse rule, p_xy included;
+              policy, with K1's tolerance, excuse rule and gates, p_xy
+              included;
   8. time_terrain  K3 and the plain version (CUDA events), beside K3's
               ptxas report;
   9. train    ``OnPolicyRunner.learn`` on go2_terrain: one warm-up
@@ -69,12 +77,13 @@ launch, bit for bit):
               with ``cstiff``) and through the plain version on the
               fine-tune's env (stiffness drawn U(0.7, 1.5)), from its
               reset and after 50 steps of the pretrained handstand
-              policy, with K1's tolerance and excuse rule; K2 with every
-              stiffness 1 must give K1's bits on the same inputs; K2's
+              policy, with K1's tolerance, excuse rule and gates; K2 with
+              every stiffness 1 must give K1's bits on the same inputs; K2's
               terrain instance against the plain version at the
               go2_terrain reset;
  13. time_cs  K2 and the plain version (CUDA events) and K2's bound,
-              beside K2's ptxas report, scratch and resident blocks;
+              the terrain instance at go2's sizes and its bound, beside
+              K2's ptxas report, scratch and resident blocks;
  14. hold     450 steps of the pretrained handstand policy under the eval
               overrides of tests/test_pretrained_go2.py (K1 at the
               handstand's sizes): at least half of the envs hold a
@@ -103,7 +112,8 @@ launch, bit for bit):
               K1's tolerance and excuse rule, and every output of every
               rank must be bit-identical to its rows of the one-process
               launch; each rank's K4 time (CUDA events, one rank at a
-              time) beside the one-process launch's;
+              time) beside the one-process launch's, and each instance's
+              bound at 2048 envs;
  18. dp_parity  go2 flat at float32 compute, 1 iteration from the same
               seed as 1 rank x 4096 and as 2 ranks x 2048, three ways: the
               float32 policy, the policy held in float64
@@ -178,6 +188,14 @@ EXACT_FIELDS = ("obs", "actions", "log_probs", "values", "mu", "returns")
 LR_MIN, LR_MAX = 9.999999747378752e-06, 0.009999999776482582  # float32 1e-5, 1e-2
 PHI_EDGE = 1e-6          # |phi| below which a contact flip excuses an env
 MAX_EXCUSED_SHARE = 1e-3  # of the envs, in one comparison
+# The largest state error against the plain version of K1 (compare), K3
+# (compare_terrain) and K2 (compare_cs) over the envs not excused at a
+# contact edge, as every earlier form of the kernels gave it on these
+# inputs (PERF.md §6). A schedule that keeps every output's sequence of
+# roundings gives these to the last bit; any other value means the bits
+# moved.
+PARENT_MAX_ABS_ERR = {"K1": 4.57763671875e-05, "K3": 5.316734313964844e-05,
+                      "K2": 4.7206878662109375e-05}
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -192,6 +210,12 @@ def emit(obj):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def check_parent_err(name, err):
+    check(err == PARENT_MAX_ABS_ERR[name],
+          f"{name}: largest state error against the plain version {err!r}, "
+          f"the earlier kernels' was {PARENT_MAX_ABS_ERR[name]!r}: the bits moved")
 
 
 def nvidia_smi_line():
@@ -287,6 +311,24 @@ def flat_outputs(state, aux):
     out = {k: getattr(state, k) for k in ("base_pos", "base_quat", "joint_q", "v")}
     out.update(aux)
     return out
+
+
+def check_partial_launch(torch, run, x, extra, whole, name):
+    """A launch over the first N_ENVS - 1 envs (its last warp one env
+    short) against the first N_ENVS - 1 rows of the launch over all envs
+    (``whole``, flat outputs), bit for bit. ``run(x, extra)`` launches the
+    kernel on a control step's inputs ``x`` (``first_envs``' tuple) and its
+    per-env keyword operands ``extra`` (gh [ncp, N], cstiff [N]) and
+    returns flat outputs. Returns the envs of the short launch."""
+    n = N_ENVS - 1
+    ex = {k: (v[:, :n] if k == "gh" else v[:n]).contiguous() for k, v in extra.items()}
+    got = run(first_envs(x, n), ex)
+    torch.cuda.synchronize()
+    differ = [k for k in got if not torch.equal(
+        got[k], whole[k][:, :n] if k == "p_xy" else whole[k][:n])]
+    check(not differ, f"{name} over the first {n} envs differs from its launch "
+          f"over {N_ENVS} in {differ}")
+    return n
 
 
 def bound(cuda_step, m, decimation, iterations, terrain):
@@ -417,8 +459,14 @@ def terrain_phases(torch, dev):
         max_state_err = max(max_state_err, s_err)
         max_aux_err = max(max_aux_err, a_err)
         excused_errs[name] = {"state": e_errs[0], "aux_normalised": e_errs[1]}
+    partial = check_partial_launch(
+        torch, lambda xx, ex: flat_outputs(*pb.control_step(*step_args, *xx, **ex)),
+        x[:6], {"gh": x[6]}, flat_outputs(got_s, got_aux), "K3")
+    check_parent_err("K3", max_state_err)
     gh = cases["walk"][6]
     emit({"phase": "compare_terrain", "n_envs": N_ENVS, "env_build_seconds": env_build_s,
+          "parent_max_abs_err_state": PARENT_MAX_ABS_ERR["K3"],
+          "short_launch_rows_bit_identical": partial,
           "heightfield_shape": list(env.grid.heights.shape),
           "gh_range_m": [float(gh.min()), float(gh.max())],
           "max_abs_err_state": max_state_err, "max_err_aux_normalised": max_aux_err,
@@ -706,6 +754,10 @@ def handstand_phases(torch, dev, libs, build_s):
         max_state_err = max(max_state_err, s_err)
         max_aux_err = max(max_aux_err, a_err)
         excused_errs[name] = {"state": e_errs[0], "aux_normalised": e_errs[1]}
+    partial = check_partial_launch(
+        torch, lambda xx, ex: flat_outputs(*pb.control_step(*step_args, *xx, **ex)),
+        x, {"cstiff": cs}, flat_outputs(got_s, got_aux), "K2")
+    check_parent_err("K2", max_state_err)
     # K2 with every stiffness 1 against K1 on the same inputs: the same bits
     x = cases["walk"]
     k2 = flat_outputs(*pb.control_step(*step_args, *x,
@@ -737,6 +789,8 @@ def handstand_phases(torch, dev, libs, build_s):
         flat_outputs(ref_s, ref_aux), flat_outputs(got_s, got_aux),
         ref_aux["min_abs_phi"], torch, name="K2 (terrain)")
     emit({"phase": "compare_cs", "n_envs": N_ENVS, "ncp": m.ncp,
+          "parent_max_abs_err_state": PARENT_MAX_ABS_ERR["K2"],
+          "short_launch_rows_bit_identical": partial,
           "cstiff_range": [float(cs.min()), float(cs.max())],
           "max_abs_err_state": max_state_err, "max_err_aux_normalised": max_aux_err,
           "excused_contact_edge_envs": excused,
@@ -766,7 +820,16 @@ def handstand_phases(torch, dev, libs, build_s):
     t_ops = N_ENVS * flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = N_ENVS * nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
+    # the terrain instance's bound at go2's sizes and the terrain env's
+    # decimation
+    t_m = pb.soa_model_for(t_env.robot.dyn)
+    tr_ops = N_ENVS * cuda_step.flops_per_env(
+        t_m, t_env.cfg.control.decimation, t_env.cparams.iterations, terrain=True,
+        cs=True) / PEAK_FP32_FLOPS * 1e3
+    tr_bytes = N_ENVS * cuda_step.bytes_per_env(
+        t_m, terrain=True, cs=True) / PEAK_BYTES_PER_S * 1e3
     emit({"phase": "time_cs", "k2_ms": k2_ms, "plain_ms": plain_ms,
+          "k2_terrain_go2_bound_ms": max(tr_ops, tr_bytes),
           "k1_same_inputs_ms": k1_hs_ms, "k2_terrain_go2_ms": k2_terrain_ms,
           "flops_per_env": flops, "bytes_per_env": nbytes, "bound_ms": bound_ms,
           "ops_ms": t_ops, "bytes_ms": t_bytes,
@@ -774,7 +837,7 @@ def handstand_phases(torch, dev, libs, build_s):
                     "K2 terrain (go2 sizes)": instance_ptxas(
                         cuda_step, pb.soa_model_for(t_env.robot.dyn),
                         "control_step_cs", "K2 terrain")},
-          "scratch_bytes_per_warp": {
+          "scratch_bytes_per_env": {
               "K2 flat": cuda_step.scratch_bytes(m, "control_step_cs"),
               "K2 terrain (go2 sizes)": cuda_step.scratch_bytes(
                   pb.soa_model_for(t_env.robot.dyn), "control_step_cs", True)},
@@ -879,6 +942,7 @@ def handstand_phases(torch, dev, libs, build_s):
         "max_abs_err_terrain_instance": t_err,
         "ms": k2_ms,
         "ms_terrain_instance_go2": k2_terrain_ms,
+        "bound_ms_terrain_instance_go2": max(tr_ops, tr_bytes),
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1305,6 +1369,17 @@ def dp_phases(torch, dev, t_start):
              "K3": instance_ptxas(cuda_step, m, "control_step", "K3"),
              "K2": instance_ptxas(cuda_step, pb.soa_model_for(cases["K2"]["args"][0]),
                                   "control_step_cs", "K2 flat")}
+    # each instance's bound at a rank's block: K1 and K3 at go2's sizes,
+    # K2 at the fine-tune's (79 points, decimation 5)
+    n_local = N_ENVS // DP_WORLD
+    bound_by_instance = {}
+    for name, case in cases.items():
+        mm = pb.soa_model_for(case["args"][0])
+        kw = {"terrain": name == "K3", "cs": name == "K2"}
+        ops = n_local * cuda_step.flops_per_env(
+            mm, case["args"][4], case["args"][1].iterations, **kw) / PEAK_FP32_FLOPS * 1e3
+        nb = n_local * cuda_step.bytes_per_env(mm, **kw) / PEAK_BYTES_PER_S * 1e3
+        bound_by_instance[name] = {"bound_ms": max(ops, nb), "ops_ms": ops, "bytes_ms": nb}
     decimation, iterations = k1["args"][4], k1["args"][1].iterations
     del cases, x0, phys0
     t_kernel_prep = time.time() - t0
@@ -1380,6 +1455,7 @@ def dp_phases(torch, dev, t_start):
           "max_abs_err_vs_one_process_rows": max_err,
           "max_abs_err_state_vs_plain": plain_err, "kernels": kernel_rec,
           "plain_ms_block_k1": plain_block_ms, "ptxas_by_instance": ptxas,
+          "bound_ms_by_instance_per_rank": bound_by_instance,
           "seconds_one_process": t_kernel_prep})
 
     # ---- 18. 1 rank vs 2 ranks after one iteration: the ranks identical
@@ -1465,7 +1541,6 @@ def dp_phases(torch, dev, t_start):
           "ranks_bit_identical": True, "seconds": time.time() - t0})
     tmp.cleanup()
 
-    n_local = N_ENVS // DP_WORLD
     flops = cuda_step.flops_per_env(m, decimation, iterations)
     nbytes = cuda_step.bytes_per_env(m)
     t_ops = n_local * flops / PEAK_FP32_FLOPS * 1e3
@@ -1488,6 +1563,7 @@ def dp_phases(torch, dev, t_start):
         "plain_ms": plain_block_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms_by_instance_per_rank": bound_by_instance,
         "library_ms": None,
     }
 
@@ -1570,20 +1646,31 @@ def main():
     build_s = time.time() - t_build
     lib_path = libs[("control_step", cuda_step.size_defines(m))]
     ptxas = ptxas_by_kernel(cuda_step.BUILD_LOGS.get(lib_path, ""))
-    spills = {k: spill_bytes(ptxas.get(k, [])) for k in ("K1", "K3")}
-    scratch = {k: cuda_step.scratch_bytes(m, terrain=k == "K3") for k in ("K1", "K3")}
+    # every instance of every library spills no register
+    spills = {}
+    for (lib, sizes), path in libs.items():
+        for inst, lines in ptxas_by_kernel(cuda_step.BUILD_LOGS.get(path, "")).items():
+            spills[f"{inst} ({lib} {' '.join(sizes)})"] = spill_bytes(lines)
+    check(len(spills) == 2 * len(libs), f"ptxas reports {sorted(spills)}")
+    # the instances the paths run, at the sizes they run them: every env of
+    # a launch resident at once
+    runs = {"K1": (m, "control_step", False), "K3": (m, "control_step", True),
+            "K2 flat": (m_hs, "control_step_cs", False),
+            "K2 terrain": (m, "control_step_cs", True),
+            "K1 at the handstand's sizes": (m_hs, "control_step", False)}
+    scratch = {k: cuda_step.scratch_bytes(mm, lib, terr) for k, (mm, lib, terr) in runs.items()}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    resident = {k: cuda_step.resident_envs(m, terrain=k == "K3") for k in ("K1", "K3")}
+    resident = {k: cuda_step.resident_envs(mm, lib, terr) for k, (mm, lib, terr) in runs.items()}
     emit({"phase": "build", "library": lib_path.split("unitree_rl_gym_tpu_torch/")[-1],
           "build_seconds": build_s, "libraries_built_together": len(libs),
           "ptxas": ptxas, "spill_bytes_stores_loads": spills,
-          "scratch_bytes_per_warp": scratch,
+          "lanes_per_env": cuda_step.lanes_per_env(m),
+          "scratch_bytes_per_env": scratch,
           "resident_blocks_per_sm": {k: b for k, (b, _) in resident.items()},
           "envs_per_block": resident["K1"][1], "sms": n_sm,
           "seconds": time.time() - t0})
     for k, v in spills.items():
         check(v == (0, 0), f"{k} spills registers: {v} bytes (stores, loads)")
-    # the design: every env of the main path's launch resident at once
     for k, (blocks, per_block) in resident.items():
         check(blocks * per_block * n_sm >= N_ENVS,
               f"{k}: {blocks} resident blocks of {per_block} envs on {n_sm} SMs "
@@ -1621,7 +1708,13 @@ def main():
         max_state_err = max(max_state_err, s_err)
         max_aux_err = max(max_aux_err, a_err)
         excused_errs[name] = {"state": e_errs[0], "aux_normalised": e_errs[1]}
+    partial = check_partial_launch(
+        torch, lambda xx, ex: flat_outputs(*pb.control_step(*step_args, *xx, **ex)),
+        x, {}, flat_outputs(got_s, got_aux), "K1")
+    check_parent_err("K1", max_state_err)
     emit({"phase": "compare", "n_envs": N_ENVS, "max_abs_err_state": max_state_err,
+          "parent_max_abs_err_state": PARENT_MAX_ABS_ERR["K1"],
+          "short_launch_rows_bit_identical": partial,
           "max_err_aux_normalised": max_aux_err, "excused_contact_edge_envs": excused,
           "max_excused_envs": int(MAX_EXCUSED_SHARE * N_ENVS),
           "max_errors_of_excused_envs": excused_errs,

@@ -1,6 +1,7 @@
 """The per-env body of kernels K1, K3 and K2 (csrc/control_step.cuh, the
-warp schedule the CUDA kernels run, one warp per env) compiled for the host
-with g++ -O1 into pytest's tmp dir, each phase a loop over the 32 lanes,
+warp schedule the CUDA kernels run: G lanes per env, 32 / G envs per warp)
+compiled for the host with g++ -O1 into pytest's tmp dir, each phase a loop
+over the 32 lanes of an emulated warp,
 and held against the port's plain version at N=8, at
 the physics tolerance of tests/test_torch_physics.py: K1 (``HAS_GH=false``)
 grounded and airborne on the plane, K3 (``HAS_GH=true``) standing on the
@@ -10,11 +11,12 @@ stiffnesses from 0.25 to 3.0: on the plane at the go2 handstand's sizes
 (79 contact points, decimation 5, torques not clipped), grounded, and on
 the tiny heightfield at go2's. With every stiffness 1, K2's host body
 gives K1's bits. The lanes' order within a phase changes no bit (no phase
-reads what another lane of it writes); the warp's scratch fits the launch's
-shared memory; and the level tables that schedule the tree recursions and
-the Cholesky factor and solves follow the tree and the plain version's
-factor. This catches kernel math and schedule errors on machines without a
-GPU; it is never a runtime path.
+reads what another lane of it, of its env or of another, writes), also
+with the last warp only partly filled; the scratch of the envs of a block
+fits the launch's shared memory; and the level tables that schedule the
+tree recursions and the Cholesky factor and solves follow the tree and the
+plain version's factor. This catches kernel math and schedule errors on
+machines without a GPU; it is never a runtime path.
 
 The ``cuda``-marked tests hold the real kernels against the plain version
 on the card at N=64 (skip without a GPU)."""
@@ -173,6 +175,7 @@ def build_host_lib(m, out_dir, defines=()):
     lib.utrl_model_bytes.restype = ctypes.c_longlong
     lib.utrl_scratch_bytes.restype = ctypes.c_longlong
     lib.utrl_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.utrl_lanes_per_env.restype = ctypes.c_int
     lib.utrl_envs_per_block.restype = ctypes.c_int
     lib.utrl_blocks_per_sm_asked.restype = ctypes.c_int
     lib.utrl_control_step_host.restype = ctypes.c_int
@@ -225,6 +228,14 @@ def host_lib(env, tmp_path_factory):
                           tmp_path_factory.mktemp("k1_host"))
 
 
+@pytest.fixture(scope="module")
+def rev_host_lib(env, tmp_path_factory):
+    """The host build at go2's sizes with every phase's lanes reversed."""
+    return build_host_lib(pb.soa_model_for(env.robot.dyn),
+                          tmp_path_factory.mktemp("k1_host_rev"),
+                          ("-DUTRL_HOST_LANES_REVERSED",))
+
+
 def test_model_tables_match_struct(env, host_lib):
     _, tables = env_tables(env)
     assert len(tables) == host_lib.utrl_model_bytes()
@@ -234,16 +245,28 @@ def test_model_tables_match_struct(env, host_lib):
 def test_tree_levels_follow_parent(env, hs_env, task):
     """Every body's parent sits on the level above it, in the depths, in the
     depth masks and in the bodies listed by depth; each body's children are
-    the bodies whose parent it is; and the packed tables end with the
-    schedule's fields."""
+    the bodies whose parent it is; the body chains hold every body once,
+    the base alone at level 0, each chain's bodies each the parent of the
+    next, and each head's parent on a chain of the level above; and the
+    packed tables end with the schedule's fields."""
     e = env if task == "go2" else hs_env
     m, tables = env_tables(e)
     depth = cuda_step.tree_levels(m)
     assert depth[0] == 0 and m.parent[0] == -1
     for i in range(1, m.nb):
         assert depth[i] == depth[m.parent[i]] + 1, i
-    (depth_mask, n_depth, child_mask, cp_dyn, _, _, _, _, _, depth_body,
-     depth_first, rb_pt, rb_start, rb_end) = cuda_step.schedule_tables(m)
+    (depth_mask, n_depth, child_mask, cp_dyn, _, _, bodies, first, lvl, n_lvl,
+     _, _, _, _, depth_body, depth_first, rb_pt, rb_start,
+     rb_end) = cuda_step.schedule_tables(m)
+    chains = [list(bodies[first[c]:first[c + 1]]) for c in range(lvl[n_lvl[0]])]
+    level = {c: lv for lv in range(n_lvl[0]) for c in range(lvl[lv], lvl[lv + 1])}
+    chain_of = {b: c for c, ch in enumerate(chains) for b in ch}
+    assert sorted(chain_of) == list(range(m.nb)) and len(bodies) == m.nb
+    assert chains[0] == [0] and level[0] == 0 and lvl[1] == 1
+    for c, ch in enumerate(chains[1:], 1):
+        assert level[chain_of[m.parent[ch[0]]]] == level[c] - 1, ch
+        for a, b in zip(ch, ch[1:]):
+            assert m.parent[b] == a, ch
     assert n_depth == [depth.max() + 1]
     level_of = {i: d for d in range(n_depth[0]) for i in range(m.nb)
                 if int(depth_mask[d]) >> i & 1}
@@ -269,9 +292,14 @@ def test_tree_levels_follow_parent(env, hs_env, task):
 @pytest.mark.parametrize("task", ["go2", "go2_handstand"])
 def test_chol_levels_cover_the_plain_factor(env, hs_env, task):
     """Every entry the plain version's factor keeps (``soa.chol_factor_s``
-    emits no structural zero) is in the kernel's pattern and joins a lower
-    level to a higher one, both ways, so the kernel's level-by-level sums
-    hold every term the plain version's do."""
+    emits no structural zero) is in the kernel's pattern, and for joint
+    rows i > j, column j comes before i in the factor's and the forward
+    solve's order and after it in the back solve's: later on the same
+    elimination chain (walked from its tail up, and from its head down) or
+    on a chain of a deeper level (deepest level first, and last). So the
+    kernel's chain-by-chain sums hold every term the plain version's do,
+    each one final when it is read. Every joint's column holds every base
+    row, which the back solve reads first, before the joint rows' terms."""
     e = env if task == "go2" else hs_env
     m = pb.soa_model_for(e.robot.dyn)
     x = make_inputs(e.default_dof_pos.numpy(), N, True, seed=3)
@@ -280,12 +308,18 @@ def test_chol_levels_cover_the_plain_factor(env, hs_env, task):
     L, _, _ = soa.chol_factor_s(soa.crba_s(m, E_up, torch.from_numpy(x["mass_scale"])),
                                 m.chol_order)
     nz = cuda_step.chol_pattern(m)
-    fwd, bwd = cuda_step.chol_levels(m)
+    pos, first, lvl = cuda_step.elim_chains(m)
+    assert sorted(pos) == list(range(m.nj))
+    assert nz[m.nj:, :m.nj].all()
+    level = {c: lv for lv in range(len(lvl) - 1) for c in range(lvl[lv], lvl[lv + 1])}
+    where = {int(p): (c, q) for c in range(len(first) - 1)
+             for q, p in enumerate(pos[first[c]:first[c + 1]])}
     assert len(L) > m.nv
     for i, j in L:
         assert nz[i, j], (i, j)
-        if i > j:
-            assert fwd[j] < fwd[i] and bwd[i] < bwd[j], (i, j)
+        if m.nj > i > j:
+            (ci, qi), (cj, qj) = where[i], where[j]
+            assert (ci == cj and qj > qi) or level[cj] > level[ci], (i, j)
 
 
 # the H100's shared memory (CUDA C++ Programming Guide, compute capability
@@ -296,30 +330,36 @@ SMEM_RESERVED_PER_BLOCK = 1024
 
 
 def test_scratch_fits_shared_memory(host_lib, hs_host_lib):
-    """The build exports one warp's scratch and the launch's shape, and the
-    blocks that the kernel's __launch_bounds__ asks for fit an H100 SM's
-    shared memory at go2's sizes (K1, K3, K2 on terrain) and the
-    handstand's (K2 flat, 79 points): within the 227 KB a block may use,
-    and as many resident at once as asked, which holds 4096 envs on 132
-    SMs. What the card's runtime grants is gated by chip_smoke.py."""
+    """The build exports one env's scratch, its lanes and the launch's
+    shape, and the blocks that the kernel's __launch_bounds__ asks for fit
+    an H100 SM's shared memory at go2's sizes (K1, K3, K2 on terrain) and
+    the handstand's (K2 flat, 79 points): a group of G = 8 or 16 lanes per
+    env, whole warps of 32 / G envs a block, each env's scratch G banks
+    after the one before it (a stride of G words modulo 32), within the
+    227 KB a block may use, and as many blocks resident at once as asked,
+    which holds 4096 envs on 132 SMs. What the card's runtime grants is
+    gated by chip_smoke.py."""
     sizes = [host_lib.utrl_scratch_bytes(0), host_lib.utrl_scratch_bytes(1),
              hs_host_lib.utrl_scratch_bytes(0)]
     assert sizes[0] < sizes[1] and sizes[0] < sizes[2]
+    lanes = host_lib.utrl_lanes_per_env()
     per_block = host_lib.utrl_envs_per_block()
     asked = host_lib.utrl_blocks_per_sm_asked()
+    assert lanes in (8, 16) and per_block % (32 // lanes) == 0, (lanes, per_block)
     assert asked * per_block * 132 >= 4096, (asked, per_block)
     for b in sizes:
         block = per_block * b
-        assert b % 4 == 0 and block <= SMEM_PER_BLOCK, b
+        assert b % 4 == 0 and (b // 4) % 32 == lanes, b
+        assert block <= SMEM_PER_BLOCK, b
         assert asked * (block + SMEM_RESERVED_PER_BLOCK) <= SMEM_PER_SM, b
 
 
-def test_lane_order_changes_no_bit(env, terrain_env, host_lib, tmp_path):
-    """Each phase's lanes run in reverse in a second host build: K1, K3 and
-    K2 give the same bits, so no phase reads what another lane of it
-    writes (on the card the lanes of a phase run at once)."""
-    rev = build_host_lib(pb.soa_model_for(env.robot.dyn), tmp_path,
-                         ("-DUTRL_HOST_LANES_REVERSED",))
+def test_lane_order_changes_no_bit(env, terrain_env, host_lib, rev_host_lib):
+    """Each phase's lanes run in reverse in a second host build (the lanes
+    of each env's group and the groups of the warp): K1, K3 and K2 give the
+    same bits, so no phase reads what another lane of it writes (on the
+    card the lanes of a phase run at once)."""
+    rev = rev_host_lib
     cases = [(env, make_inputs(env.default_dof_pos.numpy(), N, True, seed=8)),
              (terrain_env, terrain_inputs(terrain_env, N, seed=8)),
              (terrain_env, dict(terrain_inputs(terrain_env, N, seed=9), cstiff=CSTIFF))]
@@ -544,3 +584,52 @@ def test_cuda_cs_kernel_matches_plain(hs_env, terrain_env, cuda_device, case):
     torch.cuda.synchronize()
     assert cuda_step.LAUNCHES_CS == before + 1
     assert_close(ref, got, keys)
+
+
+# ---------------------------------------------------------------------------
+# a last warp only partly filled: groups without an env
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def hs_rev_host_lib(hs_env, tmp_path_factory):
+    """The host build at the handstand's sizes, lanes reversed."""
+    return build_host_lib(pb.soa_model_for(hs_env.robot.dyn),
+                          tmp_path_factory.mktemp("k2_host_rev"),
+                          ("-DUTRL_HOST_LANES_REVERSED",))
+
+
+def first_rows(x, n):
+    """Inputs or outputs cut to their first ``n`` envs (gh and p_xy are
+    [points, envs])."""
+    return {k: (v[:, :n] if k in ("gh", "p_xy") else v[:n]) for k, v in x.items()}
+
+
+@pytest.mark.parametrize("case", ["K1", "K3", "K2 flat", "K2 terrain"])
+def test_partial_warp_matches_plain(env, terrain_env, hs_env, host_lib, rev_host_lib,
+                                    hs_host_lib, hs_rev_host_lib, case):
+    """n_envs one short of two whole warps (7 at G = 8, 3 at G = 16): the
+    last warp's group without an env writes nothing, and every real env
+    gets the bits of its row of the launch over two whole warps, the same
+    bits with the lanes and groups reversed, and the plain version's
+    outputs at the physics tolerance."""
+    n = 2 * (32 // host_lib.utrl_lanes_per_env())
+    if case == "K1":
+        e, libs = env, (host_lib, rev_host_lib)
+        x = make_inputs(env.default_dof_pos.numpy(), n, True, seed=11)
+    elif case == "K2 flat":
+        e, libs = hs_env, (hs_host_lib, hs_rev_host_lib)
+        x = handstand_inputs(hs_env, n, seed=11)
+    else:
+        e, libs = terrain_env, (host_lib, rev_host_lib)
+        x = terrain_inputs(terrain_env, n, seed=11)
+        if case == "K2 terrain":
+            x["cstiff"] = np.resize(CSTIFF, n)
+    whole = host_step(libs[0], *env_tables(e), x)
+    x = first_rows(x, n - 1)
+    got = host_step(libs[0], *env_tables(e), x)
+    rev = host_step(libs[1], *env_tables(e), x)
+    for k in got:
+        np.testing.assert_array_equal(got[k], first_rows(whole, n - 1)[k], err_msg=k)
+        np.testing.assert_array_equal(got[k], rev[k], err_msg=k)
+    assert_close(plain_step(e, x), got, list(got))

@@ -1,7 +1,8 @@
 """Kernel K4 (``cuda_step.control_step_sharded``): one rank's launch of K1,
 K3 or K2 on its contiguous env block gives, bit for bit, the block's rows
-of one launch of the same instance over all envs (envs are independent and
-the kernels run one warp per env). At N=64 split over 2 blocks: go2 on
+of one launch of the same instance over all envs (envs are independent:
+each env's group of lanes computes it alone, and a group without an env
+writes nothing). At N=64 split over 2 blocks: go2 on
 flat ground (K1), go2 on the tiny heightfield (K3, ``gh`` and ``p_xy``
 rows included) and the go2 handstand's model with per-env contact
 stiffnesses (K2). The same holds on the CPU for the plain version, which

@@ -1,6 +1,6 @@
 // Kernels K1 and K3: the decimated physics control step on flat ground (K1)
-// and on heightfield terrain (K3), one warp per env, for Hopper
-// (nvcc -gencode arch=compute_90a,code=sm_90a).
+// and on heightfield terrain (K3), a group of 8 lanes per env and four
+// envs a warp, for Hopper (nvcc -gencode arch=compute_90a,code=sm_90a).
 //
 // Replace the JAX package's Pallas TPU kernel
 // unitree_rl_gym_tpu/physics/pallas_step.py::_kernel as launched by
@@ -22,27 +22,23 @@
 // exact count is physics/cuda_step.py::flops_per_env), ~1.14 GFLOP at 4096
 // envs: ~17 us at 67 TFLOP/s fp32. The operation bound is the larger.
 //
-// What the design does about it. The one-thread-per-env form this replaces
-// (1.27-1.34 ms per launch at 4096 go2 envs on an H100 80GB HBM3 at 700 W,
-// ~76x the bound) put ~1 warp on each SM, every dependent operation waited
-// out its latency, and its working set (255 registers and a 7.5 KB stack
-// frame) lived in local memory. Here one warp computes one env: its 68
-// points, 12 joints, 29 report bodies and 18 rows of H are spread over the
-// 32 lanes; the tree recursions and the joints' part of the Cholesky
-// factor and solves run level by level, the base's dense 6 x 6 block on
-// one lane in registers (control_step.cuh); and the working set (6.2 KB for
-// K1 at go2's sizes, 6.5 KB for K3) lives in the warp's slice of shared
-// memory. 4096 envs are 4096 warps, ~31 per SM; the launch asks for 8
-// resident blocks of 4 warps (64 registers a thread, no spills) so that
-// all are resident at once and an SM switches to another env while one
-// waits (utrl_resident_blocks reads what the runtime grants). The outputs
-// are the one-thread form's bits. What bounds it now is each env's chain of ~800 dependent phases
-// (8 PGS sweeps x 4 substeps, each a velocity pass, the point updates, the
-// force pass with the per-body sums and the two triangular solves): one
-// env alone takes about half the time of 4096, and the eight warps that
-// share a scheduler at 4096 envs issue the rest, most of a narrow phase's
-// lanes idle. Measured by chip_smoke.py (phase `time` also times 132 envs,
-// one per SM); PERF.md §6 holds the card times.
+// What the design does about it. The work of one env is a chain of
+// dependent steps (tree recursions, a sparse Cholesky factor and two
+// triangular solves per PGS sweep), most of them a handful of items wide.
+// A group of 8 lanes computes one env (control_step.cuh): its 68 points, 12
+// joints, 29 report bodies and 18 rows of H are spread over the lanes; the
+// tree passes and the joints' part of the factor and both solves run a
+// lane per chain of the tree (go2: a leg each, base alone), the base's
+// dense 6 x 6 block on one lane; each env's working set (5.9 KB for K1 at
+// go2's sizes, 6.2 KB for K3) lives in its slice of shared memory, and
+// what one lane alone reads across phases (its points' lever arms,
+// biases, gains and impulses for a substep's sweeps, the base block's
+// factor) in its registers. Four envs share a warp, so a phase a few
+// items wide issues once for four envs. 4096 envs are 1024 warps, eight
+// an SM: the launch asks for 4 resident blocks of 8 envs (255 registers a
+// thread, no spills; utrl_resident_blocks reads what the runtime grants),
+// all 4096 resident at once. The outputs are the one-thread form's bits.
+// PERF.md §6 holds the card times and what bounds the kernel now.
 //
 // Built by physics/cuda_step.py into a shared library with a plain C
 // interface (loaded with ctypes): no PyTorch headers in the build.

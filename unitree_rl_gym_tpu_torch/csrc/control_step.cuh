@@ -27,30 +27,40 @@
 // built once by physics/cuda_step.py (tables, not generated code), and its
 // sizes come from the build as -DUTRL_NB, -DUTRL_NCP and -DUTRL_NRB.
 //
-// Schedule: one warp of 32 lanes computes one env. Its working set (the
+// Schedule: a group of kUtrlGroup (G) lanes computes one env, and a warp
+// holds kUtrlLanes / G envs, one a group. Each env's working set (the
 // state, the kinematics, H and its factor, the body velocities and forces,
-// the contact points) lives in a per-warp UtrlScratch, which is the warp's
+// the contact impulse increments) lives in its UtrlScratch, the group's
 // slice of shared memory on the card. The work is a sequence of phases
-// (utrl_phase): in each, every lane runs the same body on its own share of
-// the items (points, joints, bodies, report bodies, rows of H, one per
-// lane, strided where there are more than 32), reads only what earlier
-// phases wrote, writes only its own items, and the warp synchronises
-// before the next phase. Recursions over the tree run level by level from
-// the tables' depth masks (a parent's children add into it in descending
-// body order, as in the one-env loop); the joints' part of the Cholesky
-// factor and of both triangular solves runs by elimination-tree levels (an
+// (utrl_phase): in each, every lane of every group runs the same body on
+// its own share of its env's items (points, joints, bodies, report bodies,
+// rows of H, strided by G), reads only what earlier phases wrote, writes
+// only its own items, and the warp synchronises before the next phase.
+// Every group runs the same phase sequence (the tables and the loop counts
+// are the model's, not the env's), so one full-warp __syncwarp serves all.
+// The recursions over the tree (FK, velocities, RNEA, forces) run a lane
+// per chain of the tree (a body, then its only child while it has one:
+// go2's legs), a phase per level of chains, each body's result carried to
+// the next in registers (a parent's children add into it in descending
+// body order, as in the one-env loop); CRBA's composites run level by
+// level from the depth masks; the joints' part of the Cholesky factor and
+// of both triangular solves a lane per chain of the elimination tree (an
 // entry is computed once every entry it needs is final), and the base's
-// dense 6 x 6 block on one lane. Every sum keeps its terms' order (points
-// in point order, Cholesky terms in ascending k, skipping only structural
-// zeros). So each output is the same sequence of roundings as in the
-// one-thread-per-env form this replaced; only the order in which
-// independent values are computed moved.
+// dense 6 x 6 block on lane 0. What a lane alone reads across phases
+// stays in its registers (UtrlLane): its contact points' lever arms,
+// biases, preconditioned gains and impulses for a whole substep's PGS
+// sweeps, and the base block's factor.
+// Every sum keeps its terms' order (points in point order, Cholesky terms
+// in ascending k, skipping only structural zeros). So each output is the
+// same sequence of roundings as in a plain one-thread-per-env loop; only
+// the order in which independent values are computed moved.
 //
 // Everything here is __host__ __device__: the CUDA kernel (control_step.cu)
 // runs a phase once per lane of a warp, and a host harness
 // (host_harness.cpp, compiled by g++ in the tests) runs it as a loop over
-// the 32 lanes on the CPU, so the kernel's schedule is held against the
-// plain PyTorch version on machines without a GPU.
+// the 32 lanes of an emulated warp of 32 / G envs on the CPU, so the
+// kernel's schedule is held against the plain PyTorch version on machines
+// without a GPU.
 #pragma once
 
 #include <math.h>
@@ -82,10 +92,22 @@ UTRL_HD float utrl_rsqrt(float x) {
 #define UTRL_NTRI (UTRL_NV * (UTRL_NV + 1) / 2)
 
 static const int kUtrlLanes = 32;
-// The launch: kUtrlWarps envs (one warp each) per block, and the resident
-// blocks per SM that the kernel's __launch_bounds__ asks for.
-static const int kUtrlWarps = 4;
-static const int kUtrlBlocksPerSM = 8;
+// G, the lanes of one env, and the envs of a warp
+static const int kUtrlGroup = 8;
+static const int kUtrlEnvsPerWarp = kUtrlLanes / kUtrlGroup;
+// The launch: kUtrlEnvsPerBlock envs (kUtrlWarps warps) per block, and the
+// resident blocks per SM that the kernel's __launch_bounds__ asks for: 32
+// envs (8 warps) an SM, 4224 on the H100's 132 SMs, at up to 255
+// registers a thread.
+static const int kUtrlEnvsPerBlock = 8;
+static const int kUtrlWarps = kUtrlEnvsPerBlock / kUtrlEnvsPerWarp;
+static const int kUtrlBlocksPerSM = 4;
+// contact points per lane: point c is lane c % G's, slot c / G
+static const int kUtrlPoints = (UTRL_NCP + kUtrlGroup - 1) / kUtrlGroup;
+static_assert(kUtrlGroup >= 8 && (kUtrlGroup & (kUtrlGroup - 1)) == 0
+              && kUtrlGroup <= kUtrlLanes,
+              "a group is a power of two of at least 8 lanes (the base's six rows)");
+static_assert(kUtrlEnvsPerBlock % kUtrlEnvsPerWarp == 0, "whole warps a block");
 
 // Every field is 4 bytes wide, so the struct has no padding and
 // physics/cuda_step.py packs it field by field in this order; the build
@@ -131,17 +153,28 @@ struct ModelTables {
     float max_angular_velocity;
     float max_linear_velocity;
     // the warp schedule's tables (physics/cuda_step.py::tree_levels,
-    // chol_levels), sets of bodies or positions as bit masks (bit i = i)
+    // body_chains, elim_chains), sets of bodies or positions as bit masks
+    // (bit i = i)
     unsigned depth_mask[UTRL_NB]; // bodies at each depth (base 0)
     int n_depth;                  // 1 + the largest depth
     unsigned child_mask[UTRL_NB]; // children of each body
     int cp_dyn[UTRL_NCP];         // dyn body of each (sorted) point
     unsigned chol_row[UTRL_NV];   // structural nonzeros k < i of L's row i
     unsigned chol_col[UTRL_NV];   // ... and k > i of its column i
-    unsigned chol_lvl_f[UTRL_NV]; // positions at each elimination-tree level
-    unsigned chol_lvl_b[UTRL_NV]; // from the leaves (f) and from the root (b)
-    int n_lvl_f;
-    int n_lvl_b;
+    // chains of the kinematic tree: bodies chain by chain, each from its
+    // head down (chain c: entries [bchain_first[c], bchain_first[c + 1])),
+    // the chains of level l: [bchain_lvl[l], bchain_lvl[l + 1]); the base
+    // alone is level 0
+    int bchain_body[UTRL_NB];
+    int bchain_first[UTRL_NB + 1];
+    int bchain_lvl[UTRL_NB + 1];
+    int n_bchain_lvl;
+    // chains of the joints' elimination tree, the same way: joint
+    // positions, each chain from its head (nearest the base rows) down
+    int echain_pos[UTRL_NJ];
+    int echain_first[UTRL_NJ + 1];
+    int echain_lvl[UTRL_NJ + 1];
+    int n_echain_lvl;
     int depth_body[UTRL_NB];      // bodies by depth, ascending within one
     int depth_first[UTRL_NB];     // each depth's first entry of depth_body
     int rb_pt[UTRL_NCP];          // points by report body, ascending within one
@@ -336,7 +369,7 @@ UTRL_HD void utrl_hset(const ModelTables& M, float* H, int a, int b, float val) 
 }
 
 // ---------------------------------------------------------------------------
-// the per-warp scratch and the phase loop
+// the per-env scratch, the per-lane registers and the phase loop
 // ---------------------------------------------------------------------------
 
 struct UtrlKin {
@@ -347,8 +380,8 @@ struct UtrlKin {
 
 // One env's working set. The union's members are live in turn within a
 // substep: the RNEA accelerations, then CRBA's composite inertias, then
-// the contact points (whose impulses of the last substep are read once
-// more by the report-body pass).
+// what the contact solve's lanes share (whose impulses of the last
+// substep's last sweep are read once more by the report-body pass).
 template <bool HAS_GH>
 struct UtrlScratch {
     float bp[3], bq[4], q[UTRL_NJ], v[UTRL_NV], target[UTRL_NJ], tau[UTRL_NJ];
@@ -358,12 +391,12 @@ struct UtrlScratch {
     float vb[UTRL_NB][6];    // body velocities (body coords)
     float f[UTRL_NB][6];     // body forces, turned into their parent's terms
     float L[UTRL_NTRI];      // H, then its L D^{1/2} factor, packed lower
-    float rinv[UTRL_NV];     // 1 / sqrt(pivot)
+                             // (the base block's factor: lane 0's UtrlLane)
+    float rinv[UTRL_NV];     // 1 / sqrt(pivot) of the joints
     float rhs[UTRL_NV];      // RNEA bias, then the substep's right-hand side
     float vv[UTRL_NV];       // the substep's velocity
     float gen[UTRL_NV];      // generalized contact force
     float y[UTRL_NV];        // a solve's vector in elimination order
-    unsigned rem[UTRL_NV];   // the forward solve's terms still to subtract
     union {
         struct {
             float a[UTRL_NB][6];        // RNEA accelerations
@@ -373,12 +406,11 @@ struct UtrlScratch {
             float T[UTRL_NB][27];       // each body's block in its parent's frame
         } crba;
         struct {
-            float r_w[UTRL_NCP][3];     // world lever arms from the body origin
-            float v_bias[UTRL_NCP];
-            float pn[UTRL_NCP];
+            float pn[UTRL_NCP];         // the last sweep's impulses
             float ptx[UTRL_NCP];
             float pty[UTRL_NCP];
             float dp[UTRL_NCP][3];      // this sweep's impulse increments
+            float nw[UTRL_NCP][3];      // ... and their moments r_w x dp
             float wl[UTRL_NB][6];       // world angular / linear body velocity
             float jacobi[UTRL_NB];      // 1 / #active points on the body
             unsigned char active[UTRL_NCP];
@@ -386,164 +418,271 @@ struct UtrlScratch {
     } u;
 };
 
-// Run body(lane) for every lane of the warp, then synchronise the warp: on
-// the card each lane runs it once; on the host the lanes run one after
-// another (in reverse with -DUTRL_HOST_LANES_REVERSED, which the tests use
-// to show that no phase reads what another lane of it writes).
-//
-// The lane id is read anew in every phase (a volatile read the compiler
-// cannot hoist), so what each lane derives from it is recomputed where it
-// is used instead of held in registers across the whole kernel.
-template <class F>
-UTRL_HD void utrl_phase(F&& body) {
+// One env's scratch in words, and the stride of the envs of a warp: the
+// next count of words = G (mod 32), so that group g starts g * G banks
+// along and the groups' lanes of a phase fall in different banks.
+template <bool HAS_GH>
+struct UtrlLayout {
+    static constexpr int words = (int)((sizeof(UtrlScratch<HAS_GH>) + 3) / 4);
+    static constexpr int stride = (words - kUtrlGroup + 31) / 32 * 32 + kUtrlGroup;
+};
+
+// What one lane alone reads across phases, in its registers on the card
+// (on the host, one per lane of the emulated warp).
+struct UtrlLane {
+    // its contact points c = lane + p * G, slot p (c < NCP): set once per
+    // substep, held across the substep's PGS sweeps
+    int b[kUtrlPoints];                        // dyn body
+    float r_w[kUtrlPoints][3];                 // world lever arm from its origin
+    float v_bias[kUtrlPoints];
+    float kn[kUtrlPoints], kt[kUtrlPoints];    // (relaxation * jacobi) * m_eff
+    float pn[kUtrlPoints], ptx[kUtrlPoints], pty[kUtrlPoints];
+    unsigned active;                           // bit p: slot p in contact
+    float mu;                                  // the env's friction coefficient
+    // lane 0: the base block's L D^{1/2} factor (packed lower) and its
+    // pivots' 1 / sqrt, from the factor to the substep's last solve
+    float Lb[21], rinvb[6];
+};
+
+// A warp's envs: group g (lanes g G .. g G + G - 1) computes env n0 + g in
+// the scratch at g * stride words; each lane's UtrlLane (on the card the
+// thread's own, on the host the lane's of `lanes`).
+template <bool HAS_GH>
+struct UtrlWarp {
+    float* scratch;
+    UtrlLane* lanes;
+    int n0;
+    UTRL_HD UtrlScratch<HAS_GH>& env(int g) const {
+        return *reinterpret_cast<UtrlScratch<HAS_GH>*>(
+            scratch + g * UtrlLayout<HAS_GH>::stride);
+    }
+    UTRL_HD UtrlLane& lane(int hw) const {
 #ifdef __CUDA_ARCH__
-    int lane;
-    asm volatile("mov.u32 %0, %%laneid;" : "=r"(lane));
-    body(lane);
-    __syncwarp();
-#elif defined(UTRL_HOST_LANES_REVERSED)
-    for (int lane = kUtrlLanes - 1; lane >= 0; --lane) body(lane);
+        (void)hw;
+        return *lanes;
 #else
-    for (int lane = 0; lane < kUtrlLanes; ++lane) body(lane);
+        return lanes[hw];
+#endif
+    }
+};
+
+// Run body(s, lane, r, n) on every lane of the warp, then synchronise the
+// warp: s is the scratch of the lane's env, lane its index in the env's
+// group (0 .. G - 1), r its registers and n the env (n_envs or more in a
+// group of the last warp that has none). On the card each lane runs it
+// once; on the host the lanes run one after another (in reverse with
+// -DUTRL_HOST_LANES_REVERSED, the lanes of each group and the groups both:
+// the tests use it to show that no phase reads what another lane of it,
+// of its env or of another, writes).
+template <class W, class F>
+UTRL_HD void utrl_phase(const W& w, F&& body) {
+#ifdef __CUDA_ARCH__
+    const int hw = (int)(threadIdx.x % kUtrlLanes);
+    body(w.env(hw / kUtrlGroup), hw % kUtrlGroup, w.lane(hw), w.n0 + hw / kUtrlGroup);
+    __syncwarp();
+#else
+    for (int i = 0; i < kUtrlLanes; ++i) {
+#ifdef UTRL_HOST_LANES_REVERSED
+        const int hw = kUtrlLanes - 1 - i;
+#else
+        const int hw = i;
+#endif
+        body(w.env(hw / kUtrlGroup), hw % kUtrlGroup, w.lane(hw),
+             w.n0 + hw / kUtrlGroup);
+    }
 #endif
 }
 
+// f(node, start) for each node of the lane's chains among c0 .. c1 - 1
+// (every G-th from c0 + lane; chain c: nodes[first[c] .. first[c + 1] - 1]),
+// each chain from its head down, or from its tail up with UP; start marks
+// a chain's first node. A pass carries what a node hands on to the next in
+// registers, and writes each node's result to the scratch only at its end:
+// a store to the scratch between two loads from it would hold the second
+// one back (the compiler cannot tell the two addresses apart).
+template <bool UP, class F>
+UTRL_HD void utrl_chain_walk(const int* first, const int* nodes, int c0, int c1,
+                             int lane, F&& f) {
+    for (int c = c0 + lane; c < c1; c += kUtrlGroup) {
+        const int q0 = first[c], n = first[c + 1] - q0;
+        for (int k = 0; k < n; ++k) f(nodes[UP ? q0 + n - 1 - k : q0 + k], k == 0);
+    }
+}
+
 // ---------------------------------------------------------------------------
-// kinematics and the tree recursions, level by level
+// kinematics and the tree recursions, chain by chain
 // ---------------------------------------------------------------------------
 
-template <class S>
-UTRL_HD void utrl_fk(const ModelTables& M, S& s) {
-    utrl_phase([&](int lane) {
-        for (int j = lane; j < UTRL_NJ; j += kUtrlLanes)
+template <class W>
+UTRL_HD void utrl_fk(const ModelTables& M, const W& w) {
+    utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+        for (int j = lane; j < UTRL_NJ; j += kUtrlGroup)
             utrl_joint_E(M, j, s.q[j], s.K.E[j]);
-        if (lane == kUtrlLanes - 1) {
+        if (lane == kUtrlGroup - 1) {
             utrl_quat_to_rotmat(s.bq, s.K.R[0]);
             for (int i = 0; i < 3; ++i) s.K.p[0][i] = s.bp[i];
         }
     });
-    for (int d = 1; d < M.n_depth; ++d) {
-        const unsigned level = M.depth_mask[d];
-        utrl_phase([&](int lane) {
-            for (int i = lane; i < UTRL_NB; i += kUtrlLanes) {
-                if (!(level >> i & 1u)) continue;
+    // a phase a chain level from 1, each lane a chain from its head down
+    for (int l = 1; l < M.n_bchain_lvl; ++l) {
+        const int c0 = M.bchain_lvl[l], c1 = M.bchain_lvl[l + 1];
+        utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+            float Rp[9], pp[3];  // the parent's rotation and origin
+            utrl_chain_walk<false>(M.bchain_first, M.bchain_body, c0, c1, lane,
+                                   [&](int i, bool start) {
                 const int par = M.parent[i], j = i - 1;
-                float Et[9];
+                if (start) {
+                    for (int k = 0; k < 9; ++k) Rp[k] = s.K.R[par][k];
+                    for (int k = 0; k < 3; ++k) pp[k] = s.K.p[par][k];
+                }
+                float Et[9], Ri[9], t[3];
                 for (int a = 0; a < 3; ++a)
                     for (int b = 0; b < 3; ++b) Et[3 * a + b] = s.K.E[j][3 * b + a];
-                utrl_mm(s.K.R[par], Et, s.K.R[i]);
-                float t[3];
-                utrl_mv(s.K.R[par], M.rtree[j], t);
-                for (int k = 0; k < 3; ++k) s.K.p[i][k] = s.K.p[par][k] + t[k];
-            }
+                utrl_mm(Rp, Et, Ri);
+                utrl_mv(Rp, M.rtree[j], t);
+                for (int k = 0; k < 3; ++k) pp[k] = pp[k] + t[k];
+                for (int k = 0; k < 9; ++k) s.K.R[i][k] = Rp[k] = Ri[k];
+                for (int k = 0; k < 3; ++k) s.K.p[i][k] = pp[k];
+            });
         });
     }
 }
 
-// per-body spatial velocities (body coords) from a generalized velocity v;
-// WORLD also writes each body's world angular and linear velocity (PGS).
-// Level by level, a lane a body; the base (vb[0] = v[0:6]) shares its
-// children's phase: they read v.
-template <bool WORLD, class S>
-UTRL_HD void utrl_velocity_prop(const ModelTables& M, S& s, const float* v) {
-    for (int d = 1; d == 1 || d < M.n_depth; ++d) {
-        const unsigned level = M.depth_mask[d] | (d == 1 ? 1u : 0u);
-        utrl_phase([&](int lane) {
-            for (int i = lane; i < UTRL_NB; i += kUtrlLanes) {
-                if (!(level >> i & 1u)) continue;
-                float* vb = s.vb[i];
+// per-body spatial velocities (body coords) from a generalized velocity
+// vsel(s); WORLD also writes each body's world angular and linear velocity
+// (PGS). A phase a chain level from 1, each lane a chain from its head
+// down; the base's chain (vb[0] = v[0:6]) shares level 1's phase: its
+// children read v.
+template <bool WORLD, class W, class V>
+UTRL_HD void utrl_velocity_prop(const ModelTables& M, const W& w, V vsel) {
+    for (int l = 1; l < M.n_bchain_lvl; ++l) {
+        const int c0 = l == 1 ? 0 : M.bchain_lvl[l], c1 = M.bchain_lvl[l + 1];
+        utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+            const float* v = vsel(s);
+            float vb[6];  // the last body's velocity: its child's parent's
+            utrl_chain_walk<false>(M.bchain_first, M.bchain_body, c0, c1, lane,
+                                   [&](int i, bool start) {
                 if (i == 0) {
                     for (int k = 0; k < 6; ++k) vb[k] = v[k];
                 } else {
                     const int j = i - 1, par = M.parent[i];
-                    utrl_xform_motion(s.K.E[j], M.rtree[j], par == 0 ? v : s.vb[par], vb);
-                    for (int k = 0; k < 3; ++k) vb[k] = vb[k] + M.axis[j][k] * v[6 + j];
+                    if (start) {
+                        const float* vp = par == 0 ? v : s.vb[par];
+                        for (int k = 0; k < 6; ++k) vb[k] = vp[k];
+                    }
+                    float o[6];
+                    utrl_xform_motion(s.K.E[j], M.rtree[j], vb, o);
+                    const float qd = v[6 + j];
+                    for (int k = 0; k < 3; ++k) vb[k] = o[k] + M.axis[j][k] * qd;
+                    for (int k = 3; k < 6; ++k) vb[k] = o[k];
                 }
                 if (WORLD) {
-                    utrl_mv(s.K.R[i], vb, s.u.c.wl[i]);
-                    utrl_mv(s.K.R[i], vb + 3, s.u.c.wl[i] + 3);
+                    float o[6];
+                    utrl_mv(s.K.R[i], vb, o);
+                    utrl_mv(s.K.R[i], vb + 3, o + 3);
+                    for (int k = 0; k < 6; ++k) s.u.c.wl[i][k] = o[k];
                 }
-            }
+                for (int k = 0; k < 6; ++k) s.vb[i][k] = vb[k];
+            });
         });
     }
 }
 
 // adjoint of velocity_prop: per-body forces s.f (body coords, destroyed)
-// -> generalized force out [nv]. Deepest level first, a lane a body: each
-// body adds its children's terms in descending body order, then hands its
-// own on (X^* f, in place). `force(i)`, where given, first writes body i's
-// force, on the lane of body i, in the deepest level's phase.
+// -> generalized force osel(s) [nv]. A phase a chain level from the
+// deepest, each lane a chain from its tail up: each body adds its
+// children's terms in descending body order (a child is the body before
+// it on the chain or the head of a deeper chain), then hands its own on
+// (X^* f, into s.f). `force(s, r, i, f)` gives body i's own force f: by
+// default s.f[i]; the contact solve's from its points.
 struct UtrlNoForce {
-    UTRL_HD void operator()(int) const {}
+    template <class S, class R>
+    UTRL_HD void operator()(S& s, R&, int i, float* f) const {
+        for (int k = 0; k < 6; ++k) f[k] = s.f[i][k];
+    }
 };
 
-template <class S, class Force = UtrlNoForce>
-UTRL_HD void utrl_force_backward(const ModelTables& M, S& s, float* out,
+template <class W, class Out, class Force = UtrlNoForce>
+UTRL_HD void utrl_force_backward(const ModelTables& M, const W& w, Out osel,
                                  Force force = Force()) {
-    for (int d = M.n_depth - 1; d >= 0; --d) {
-        const unsigned level = M.depth_mask[d];
-        const bool first = d == M.n_depth - 1;
-        utrl_phase([&](int lane) {
-            for (int i = lane; i < UTRL_NB; i += kUtrlLanes) {
-                if (first) force(i);
-                if (!(level >> i & 1u)) continue;
-                float* fi = s.f[i];
+    for (int l = M.n_bchain_lvl - 1; l >= 0; --l) {
+        const int c0 = M.bchain_lvl[l], c1 = M.bchain_lvl[l + 1];
+        utrl_phase(w, [&](auto& s, int lane, auto& r, auto&&...) {
+            float* out = osel(s);
+            float t[6];  // the term the last body handed on
+            int prev = -1;
+            utrl_chain_walk<true>(M.bchain_first, M.bchain_body, c0, c1, lane,
+                                  [&](int i, bool start) {
+                if (start) prev = -1;
+                float fi[6];
+                force(s, r, i, fi);
                 for (unsigned cm = M.child_mask[i]; cm; cm &= ~(1u << utrl_highest(cm))) {
-                    const float* fc = s.f[utrl_highest(cm)];
-                    for (int k = 0; k < 6; ++k) fi[k] = fi[k] + fc[k];
+                    const int c = utrl_highest(cm);
+                    if (c == prev) {
+                        for (int k = 0; k < 6; ++k) fi[k] = fi[k] + t[k];
+                    } else {
+                        const float* fc = s.f[c];
+                        for (int k = 0; k < 6; ++k) fi[k] = fi[k] + fc[k];
+                    }
                 }
                 if (i == 0) {
                     for (int k = 0; k < 6; ++k) out[k] = fi[k];
                 } else {
                     const int j = i - 1;
                     out[6 + j] = utrl_dot(M.axis[j], fi);
-                    float t[6];
                     utrl_xform_force_inv(s.K.E[j], M.rtree[j], fi, t);
-                    for (int k = 0; k < 6; ++k) fi[k] = t[k];
+                    for (int k = 0; k < 6; ++k) s.f[i][k] = t[k];
                 }
-            }
+                prev = i;
+            });
         });
     }
 }
 
 // ---------------------------------------------------------------------------
-// dynamics: RNEA bias, CRBA into the permuted packed H, Cholesky by levels
+// dynamics: RNEA bias, CRBA into the permuted packed H, Cholesky by chains
 // ---------------------------------------------------------------------------
 
-// bias [nv] into s.rhs; needs s.vb of s.v
-template <class S>
-UTRL_HD void utrl_bias(const ModelTables& M, S& s) {
-    float(*a)[6] = s.u.rnea.a;
-    for (int d = 0; d < M.n_depth; ++d) {
-        const unsigned level = M.depth_mask[d];
-        utrl_phase([&](int lane) {
-            for (int i = lane; i < UTRL_NB; i += kUtrlLanes) {
-                if (!(level >> i & 1u)) continue;
+// bias [nv] into s.rhs; needs s.vb of s.v. The accelerations a phase a
+// chain level, each lane a chain from its head down.
+template <class W>
+UTRL_HD void utrl_bias(const ModelTables& M, const W& w) {
+    for (int l = 0; l < M.n_bchain_lvl; ++l) {
+        const int c0 = M.bchain_lvl[l], c1 = M.bchain_lvl[l + 1];
+        utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+            float ai[6];  // the last body's acceleration: its child's parent's
+            utrl_chain_walk<false>(M.bchain_first, M.bchain_body, c0, c1, lane,
+                                   [&](int i, bool start) {
                 if (i == 0) {
                     float gb[3];
                     utrl_mtv(s.K.R[0], M.gravity, gb);
                     for (int k = 0; k < 3; ++k) {
-                        a[0][k] = 0.0f;
-                        a[0][3 + k] = -gb[k];
+                        ai[k] = 0.0f;
+                        ai[3 + k] = -gb[k];
                     }
-                    continue;
+                } else {
+                    const int j = i - 1;
+                    if (start)
+                        for (int k = 0; k < 6; ++k) ai[k] = s.u.rnea.a[M.parent[i]][k];
+                    float o[6];
+                    utrl_xform_motion(s.K.E[j], M.rtree[j], ai, o);
+                    // + v_i x_m (axis qd, 0) = (w x S qd, vl x S qd)
+                    float Sq[3], c1[3], c2[3];
+                    for (int k = 0; k < 3; ++k) Sq[k] = M.axis[j][k] * s.v[6 + j];
+                    utrl_cross(s.vb[i], Sq, c1);
+                    utrl_cross(s.vb[i] + 3, Sq, c2);
+                    for (int k = 0; k < 3; ++k) {
+                        ai[k] = o[k] + c1[k];
+                        ai[3 + k] = o[3 + k] + c2[k];
+                    }
                 }
-                const int j = i - 1;
-                utrl_xform_motion(s.K.E[j], M.rtree[j], a[M.parent[i]], a[i]);
-                // + v_i x_m (axis qd, 0) = (w x S qd, vl x S qd)
-                float Sq[3], c1[3], c2[3];
-                for (int k = 0; k < 3; ++k) Sq[k] = M.axis[j][k] * s.v[6 + j];
-                utrl_cross(s.vb[i], Sq, c1);
-                utrl_cross(s.vb[i] + 3, Sq, c2);
-                for (int k = 0; k < 3; ++k) {
-                    a[i][k] = a[i][k] + c1[k];
-                    a[i][3 + k] = a[i][3 + k] + c2[k];
-                }
-            }
+                for (int k = 0; k < 6; ++k) s.u.rnea.a[i][k] = ai[k];
+            });
         });
     }
-    utrl_phase([&](int lane) {
-        for (int i = lane; i < UTRL_NB; i += kUtrlLanes) {
+    utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+        float(*a)[6] = s.u.rnea.a;
+        for (int i = lane; i < UTRL_NB; i += kUtrlGroup) {
             const float scale = i == 0 ? s.mass_scale : 1.0f;
             float Ia[6], Iv[6], c1[3], c2[3], c3[3];
             utrl_apply_inertia(M, i, a[i], scale, Ia);
@@ -558,16 +697,15 @@ UTRL_HD void utrl_bias(const ModelTables& M, S& s) {
             }
         }
     });
-    utrl_force_backward(M, s, s.rhs);
+    utrl_force_backward(M, w, [](auto& s) { return s.rhs; });
 }
 
 // H into s.L (elimination order, packed lower)
-template <class S>
-UTRL_HD void utrl_crba(const ModelTables& M, S& s) {
-    float(*Icb)[27] = s.u.crba.Icb;
-    float(*T)[27] = s.u.crba.T;
-    utrl_phase([&](int lane) {
-        for (int i = lane; i < UTRL_NB; i += kUtrlLanes) {
+template <class W>
+UTRL_HD void utrl_crba(const ModelTables& M, const W& w) {
+    utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+        float(*Icb)[27] = s.u.crba.Icb;
+        for (int i = lane; i < UTRL_NB; i += kUtrlGroup) {
             const float sc = i == 0 ? s.mass_scale : 1.0f;
             for (int k = 0; k < 9; ++k) {
                 Icb[i][k] = M.Ic[i][k] * sc;
@@ -575,7 +713,7 @@ UTRL_HD void utrl_crba(const ModelTables& M, S& s) {
                 Icb[i][18 + k] = (k % 4 == 0) ? M.mass[i] * sc : 0.0f;
             }
         }
-        for (int e = lane; e < UTRL_NTRI; e += kUtrlLanes) s.L[e] = 0.0f;
+        for (int e = lane; e < UTRL_NTRI; e += kUtrlGroup) s.L[e] = 0.0f;
     });
     // composites, deepest level first: each body's block into its parent's
     // frame (three lanes a body, a column each), then each parent adds its
@@ -583,27 +721,29 @@ UTRL_HD void utrl_crba(const ModelTables& M, S& s) {
     for (int d = M.n_depth - 1; d > 0; --d) {
         const unsigned parents = M.depth_mask[d - 1];
         const int first = M.depth_first[d], count = utrl_popc(M.depth_mask[d]);
-        utrl_phase([&](int lane) {
-            for (int e = lane; e < 3 * count; e += kUtrlLanes) {
+        utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+            for (int e = lane; e < 3 * count; e += kUtrlGroup) {
                 const int i = M.depth_body[first + e / 3];
-                utrl_inertia_to_parent_col(s.K.E[i - 1], M.rtree[i - 1], Icb[i],
-                                           e % 3, T[i]);
+                utrl_inertia_to_parent_col(s.K.E[i - 1], M.rtree[i - 1], s.u.crba.Icb[i],
+                                           e % 3, s.u.crba.T[i]);
             }
         });
-        utrl_phase([&](int lane) {
-            for (int k = lane; k < 27; k += kUtrlLanes)
+        utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+            float(*Icb)[27] = s.u.crba.Icb;
+            for (int k = lane; k < 27; k += kUtrlGroup)
                 for (unsigned pm = parents; pm; pm &= pm - 1) {
                     const int p = utrl_lowest(pm);
                     float acc = Icb[p][k];
                     for (unsigned cm = M.child_mask[p]; cm; cm &= ~(1u << utrl_highest(cm)))
-                        acc = acc + T[utrl_highest(cm)][k];
+                        acc = acc + s.u.crba.T[utrl_highest(cm)][k];
                     Icb[p][k] = acc;
                 }
         });
     }
     // the base block, and one column per joint walking up its chain
-    utrl_phase([&](int lane) {
-        for (int e = lane; e < UTRL_NJ + 9; e += kUtrlLanes) {
+    utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+        float(*Icb)[27] = s.u.crba.Icb;
+        for (int e = lane; e < UTRL_NJ + 9; e += kUtrlGroup) {
             if (e >= UTRL_NJ) {
                 const int r = (e - UTRL_NJ) / 3, c = (e - UTRL_NJ) % 3;
                 if (r >= c) {
@@ -637,8 +777,8 @@ UTRL_HD void utrl_crba(const ModelTables& M, S& s) {
 
 // The elimination order puts the joints first and the base's six dofs last
 // (SoAModel.chol_order), and the base rows of H, and so of L, are dense:
-// the joints run by levels of the elimination tree, one phase a level, and
-// the base block's 6 x 6 triangle is one lane's, in registers.
+// the joints run by chains of the elimination tree, a phase a level, and
+// the base block's 6 x 6 triangle is lane 0's, in its registers.
 #define UTRL_B0 (UTRL_NV - 6)                    // first base position
 #define UTRL_JOINTS ((1u << UTRL_NJ) - 1u)       // the joint positions
 static_assert(UTRL_NJ >= 1, "a model with joints");
@@ -649,19 +789,22 @@ UTRL_HD int utrl_btri(int i, int j) { return i * (i + 1) / 2 + j; }
 // In-place L D^{1/2} factor of the permuted H; rinv = 1/sqrt(pivot). Entry
 // (i, j) subtracts L[i][k] L[j][k] for every k < j where both are
 // structural nonzeros, in ascending k (the plain version's terms; a
-// structural zero adds nothing), then scales by rinv[j]. The joints' columns
-// level by level of the elimination tree from its leaves (the pivots of the
-// level, then every row's entries in them); then every base-block entry's
+// structural zero adds nothing), then scales by rinv[j]. The joints'
+// columns a phase a level of elimination chains from the deepest, each
+// lane a chain from its tail up (a column's pivot, then its entries in
+// every row below; each term's column is the column's descendant, on the
+// chain before it or on a deeper chain); then every base-block entry's
 // joint terms, one lane an entry; then the base block's own terms, column
-// by column, on one lane.
-template <class S>
-UTRL_HD void utrl_chol_factor(const ModelTables& M, S& s) {
-    float* L = s.L;
-    for (int l = 0; l < M.n_lvl_f && (M.chol_lvl_f[l] & UTRL_JOINTS); ++l) {
-        const unsigned level = M.chol_lvl_f[l];
-        utrl_phase([&](int lane) {
-            for (int j = lane; j < UTRL_NV; j += kUtrlLanes) {
-                if (!(level >> j & 1u)) continue;
+// by column, on lane 0, which keeps the block's factor and pivots in its
+// registers (UtrlLane::Lb, rinvb) for the substep's solves.
+template <class W>
+UTRL_HD void utrl_chol_factor(const ModelTables& M, const W& w) {
+    for (int l = M.n_echain_lvl - 1; l >= 0; --l) {
+        const int c0 = M.echain_lvl[l], c1 = M.echain_lvl[l + 1];
+        utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+            float* L = s.L;
+            utrl_chain_walk<true>(M.echain_first, M.echain_pos, c0, c1, lane,
+                                  [&](int j, bool) {
                 const int rj = utrl_tri(j, 0);
                 float t = L[rj + j];
                 for (unsigned m = M.chol_row[j]; m; m &= m - 1) {
@@ -670,25 +813,21 @@ UTRL_HD void utrl_chol_factor(const ModelTables& M, S& s) {
                 }
                 s.rinv[j] = utrl_rsqrt(fmaxf(t, 1e-12f));
                 L[rj + j] = t * s.rinv[j];
-            }
-        });
-        utrl_phase([&](int lane) {
-            for (int i = lane; i < UTRL_NV; i += kUtrlLanes) {
-                const int ri = utrl_tri(i, 0);
-                for (unsigned mj = M.chol_row[i] & level; mj; mj &= mj - 1) {
-                    const int j = utrl_lowest(mj), rj = utrl_tri(j, 0);
-                    float t = L[ri + j];
+                for (unsigned mi = M.chol_col[j]; mi; mi &= mi - 1) {
+                    const int i = utrl_lowest(mi), ri = utrl_tri(i, 0);
+                    float u = L[ri + j];
                     for (unsigned m = M.chol_row[i] & M.chol_row[j]; m; m &= m - 1) {
                         const int k = utrl_lowest(m);
-                        t = t - L[ri + k] * L[rj + k];
+                        u = u - L[ri + k] * L[rj + k];
                     }
-                    L[ri + j] = t * s.rinv[j];
+                    L[ri + j] = u * s.rinv[j];
                 }
-            }
+            });
         });
     }
-    utrl_phase([&](int lane) {
-        for (int e = lane; e < 21; e += kUtrlLanes) {
+    utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+        float* L = s.L;
+        for (int e = lane; e < 21; e += kUtrlGroup) {
             int bi = 0;
             while (utrl_btri(bi + 1, 0) <= e) ++bi;
             const int i = UTRL_B0 + bi, j = UTRL_B0 + e - utrl_btri(bi, 0);
@@ -701,105 +840,116 @@ UTRL_HD void utrl_chol_factor(const ModelTables& M, S& s) {
             L[ri + j] = t;
         }
     });
-    utrl_phase([&](int lane) {
+    utrl_phase(w, [&](auto& s, int lane, auto& r, auto&&...) {
         if (lane != 0) return;
-        float B[21];
+        float* B = r.Lb;
+#pragma unroll
         for (int i = 0; i < 6; ++i)
-            for (int j = 0; j <= i; ++j) B[utrl_btri(i, j)] = L[utrl_tri(UTRL_B0 + i, UTRL_B0 + j)];
+#pragma unroll
+            for (int j = 0; j <= i; ++j)
+                B[utrl_btri(i, j)] = s.L[utrl_tri(UTRL_B0 + i, UTRL_B0 + j)];
+#pragma unroll
         for (int j = 0; j < 6; ++j) {
             float t = B[utrl_btri(j, j)];
+#pragma unroll
             for (int k = 0; k < j; ++k) t = t - B[utrl_btri(j, k)] * B[utrl_btri(j, k)];
-            const float r = utrl_rsqrt(fmaxf(t, 1e-12f));
-            s.rinv[UTRL_B0 + j] = r;
-            B[utrl_btri(j, j)] = t * r;
+            const float rj = utrl_rsqrt(fmaxf(t, 1e-12f));
+            r.rinvb[j] = rj;
+            B[utrl_btri(j, j)] = t * rj;
+#pragma unroll
             for (int i = j + 1; i < 6; ++i) {
                 float u = B[utrl_btri(i, j)];
+#pragma unroll
                 for (int k = 0; k < j; ++k) u = u - B[utrl_btri(i, k)] * B[utrl_btri(j, k)];
-                B[utrl_btri(i, j)] = u * r;
+                B[utrl_btri(i, j)] = u * rj;
             }
         }
-        for (int i = 0; i < 6; ++i)
-            for (int j = 0; j <= i; ++j) L[utrl_tri(UTRL_B0 + i, UTRL_B0 + j)] = B[utrl_btri(i, j)];
     });
 }
 
-// H x = b (natural indexing); out(k, x_k) stores x_k. Each entry subtracts
-// its terms in ascending k. Forward: the joints by levels from the leaves,
-// where a row subtracts each term as soon as its y_k is final (so the base
-// rows start on their joint terms at the joints' levels), then the base
-// rows' remaining joint terms, a lane a row, then the base block on one
-// lane. Back: the base block on one lane, then the joints by levels from
-// the root.
-template <class S, class Out>
-UTRL_HD void utrl_chol_solve(const ModelTables& M, S& s, const float* b, Out out) {
-    const float* L = s.L;
-    float* y = s.y;
-    unsigned final = 0;  // positions whose y is final
-    for (int l = 0; l < M.n_lvl_f && (M.chol_lvl_f[l] & UTRL_JOINTS); ++l) {
-        const unsigned level = M.chol_lvl_f[l];
-        utrl_phase([&](int lane) {
-            for (int i = lane; i < UTRL_NV; i += kUtrlLanes) {
-                if (final >> i & 1u) continue;
-                float t = l == 0 ? b[M.chol_order[i]] : y[i];
-                unsigned rem = l == 0 ? M.chol_row[i] : s.rem[i];
-                const unsigned wait = rem & ~final;
-                unsigned ready = wait ? rem & ((wait & (~wait + 1u)) - 1u) : rem;
-                rem &= ~ready;
+// H x = b (natural indexing; b = bsel(s)); out(s, k, x_k) stores x_k.
+// Each entry subtracts its terms in ascending k (every k in turn, a
+// structural zero skipped, so a lane issues a row's loads at once instead
+// of one after another). Forward: the joint rows a phase a level of
+// elimination chains from the deepest, each lane a chain from its tail
+// up; then the base rows' joint terms, a lane a row; then the base block
+// on lane 0 from its registers. Back: the base block on lane 0, then the
+// joint rows a phase a level from 0, each lane a chain from its head down.
+template <class W, class Rhs, class Out>
+UTRL_HD void utrl_chol_solve(const ModelTables& M, const W& w, Rhs bsel, Out out) {
+    for (int l = M.n_echain_lvl - 1; l >= 0; --l) {
+        const int c0 = M.echain_lvl[l], c1 = M.echain_lvl[l + 1];
+        utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+            const float* b = bsel(s);
+            utrl_chain_walk<true>(M.echain_first, M.echain_pos, c0, c1, lane,
+                                  [&](int i, bool) {
                 const int ri = utrl_tri(i, 0);
-                for (; ready; ready &= ready - 1) {
-                    const int k = utrl_lowest(ready);
-                    t = t - L[ri + k] * y[k];
-                }
-                y[i] = level >> i & 1u ? t * s.rinv[i] : t;
-                s.rem[i] = rem;
-            }
+                const unsigned row = M.chol_row[i];
+                float t = b[M.chol_order[i]];
+#pragma unroll
+                for (int k = 0; k < UTRL_NJ; ++k)
+                    if (row >> k & 1u) t = t - s.L[ri + k] * s.y[k];
+                s.y[i] = t * s.rinv[i];
+            });
         });
-        final |= level;
     }
-    utrl_phase([&](int lane) {
+    utrl_phase(w, [&](auto& s, int lane, auto&&...) {
         if (lane >= 6) return;
         const int i = UTRL_B0 + lane, ri = utrl_tri(i, 0);
-        float t = y[i];
-        for (unsigned m = s.rem[i] & UTRL_JOINTS; m; m &= m - 1) {
-            const int k = utrl_lowest(m);
-            t = t - L[ri + k] * y[k];
-        }
-        y[i] = t;
+        const unsigned row = M.chol_row[i];
+        float t = bsel(s)[M.chol_order[i]];
+#pragma unroll
+        for (int k = 0; k < UTRL_NJ; ++k)
+            if (row >> k & 1u) t = t - s.L[ri + k] * s.y[k];
+        s.y[i] = t;
     });
-    utrl_phase([&](int lane) {
+    utrl_phase(w, [&](auto& s, int lane, auto& r, auto&&...) {
         if (lane != 0) return;
         float yb[6];
-        for (int r = 0; r < 6; ++r) {
-            const int ri = utrl_tri(UTRL_B0 + r, UTRL_B0);
-            float t = y[UTRL_B0 + r];
-            for (int q = 0; q < r; ++q) t = t - L[ri + q] * yb[q];
-            yb[r] = t * s.rinv[UTRL_B0 + r];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+            float t = s.y[UTRL_B0 + i];
+#pragma unroll
+            for (int q = 0; q < i; ++q) t = t - r.Lb[utrl_btri(i, q)] * yb[q];
+            yb[i] = t * r.rinvb[i];
         }
-        for (int r = 5; r >= 0; --r) {
-            float t = yb[r];
-            for (int q = r + 1; q < 6; ++q)
-                t = t - L[utrl_tri(UTRL_B0 + q, UTRL_B0 + r)] * yb[q];
-            yb[r] = t * s.rinv[UTRL_B0 + r];
+#pragma unroll
+        for (int i = 5; i >= 0; --i) {
+            float t = yb[i];
+#pragma unroll
+            for (int q = i + 1; q < 6; ++q) t = t - r.Lb[utrl_btri(q, i)] * yb[q];
+            yb[i] = t * r.rinvb[i];
         }
-        for (int r = 0; r < 6; ++r) {
-            y[UTRL_B0 + r] = yb[r];
-            out(M.chol_order[UTRL_B0 + r], yb[r]);
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+            s.y[UTRL_B0 + i] = yb[i];
+            out(s, M.chol_order[UTRL_B0 + i], yb[i]);
         }
     });
-    for (int l = 0; l < M.n_lvl_b; ++l) {
-        const unsigned level = M.chol_lvl_b[l] & UTRL_JOINTS;
-        if (!level) continue;
-        utrl_phase([&](int lane) {
-            for (int i = lane; i < UTRL_NV; i += kUtrlLanes) {
-                if (!(level >> i & 1u)) continue;
-                float t = y[i];
-                for (unsigned m = M.chol_col[i]; m; m &= m - 1) {
-                    const int k = utrl_lowest(m);
-                    t = t - L[utrl_tri(k, i)] * y[k];
+    for (int l = 0; l < M.n_echain_lvl; ++l) {
+        const int c0 = M.echain_lvl[l], c1 = M.echain_lvl[l + 1];
+        utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+            utrl_chain_walk<false>(M.echain_first, M.echain_pos, c0, c1, lane,
+                                   [&](int i, bool) {
+                const unsigned col = M.chol_col[i];
+                // the base rows' terms read first (every joint's column
+                // holds every base row: physics/cuda_step.py::chol_pattern)
+                float lb[6], yb[6];
+#pragma unroll
+                for (int k = 0; k < 6; ++k) {
+                    lb[k] = s.L[utrl_tri(UTRL_B0 + k, i)];
+                    yb[k] = s.y[UTRL_B0 + k];
                 }
-                y[i] = t * s.rinv[i];
-                out(M.chol_order[i], y[i]);
-            }
+                float t = s.y[i];
+#pragma unroll
+                for (int k = 0; k < UTRL_B0; ++k)
+                    if (col >> k & 1u) t = t - s.L[utrl_tri(k, i)] * s.y[k];
+#pragma unroll
+                for (int k = 0; k < 6; ++k) t = t - lb[k] * yb[k];
+                const float yi = t * s.rinv[i];
+                s.y[i] = yi;
+                out(s, M.chol_order[i], yi);
+            });
         });
     }
 }
@@ -808,105 +958,144 @@ UTRL_HD void utrl_chol_solve(const ModelTables& M, S& s, const float* b, Out out
 // PGS contact on the z = 0 plane (HAS_GH = false) or above per-point ground
 // heights gh[c] (HAS_GH = true); HAS_CS scales the de-penetration bias by
 // the env's contact stiffness cs after its clamp (the JAX package's order;
-// cs = 1 leaves every bit)
+// cs = 1 leaves every bit). Each lane's points (c = lane + p G) stay in its
+// registers from the set-up phase to the last sweep: lever arm, bias,
+// contact, the preconditioned gains (formed in the first sweep) and the
+// impulses; the lanes share only what another lane reads: each point's
+// contact (the Jacobi counts), its increments and their moments (the
+// bodies' sums), and the last sweep's impulses (the report bodies').
 // ---------------------------------------------------------------------------
 
-template <bool HAS_GH, bool HAS_CS, class S>
-UTRL_HD void utrl_contact(const ModelTables& M, S& s) {
-    auto& C = s.u.c;
-    utrl_phase([&](int lane) {
-        for (int c = lane; c < UTRL_NCP; c += kUtrlLanes) {
+template <bool HAS_GH, bool HAS_CS, class W>
+UTRL_HD void utrl_contact(const ModelTables& M, const W& w) {
+    utrl_phase(w, [&](auto& s, int lane, auto& r, auto&&...) {
+        auto& C = s.u.c;
+        r.active = 0u;
+        r.mu = 0.5f * (M.terrain_friction + s.fric);
+#pragma unroll
+        for (int p = 0; p < kUtrlPoints; ++p) {
+            const int c = lane + p * kUtrlGroup;
+            if (c >= UTRL_NCP) break;
             const int b = M.cp_dyn[c];
             const float* rc = M.cp_pos[c];
             const float* R = s.K.R[b];
+            float* rw = r.r_w[p];
             for (int i = 0; i < 3; ++i)
-                C.r_w[c][i] = rc[0] * R[3 * i] + rc[1] * R[3 * i + 1]
-                            + rc[2] * R[3 * i + 2];
-            const float z = s.K.p[b][2] + C.r_w[c][2];
+                rw[i] = rc[0] * R[3 * i] + rc[1] * R[3 * i + 1] + rc[2] * R[3 * i + 2];
+            const float z = s.K.p[b][2] + rw[2];
             const float phi = HAS_GH ? (M.cp_radius[c] + s.gh[c]) - z
                                      : M.cp_radius[c] - z;
             C.active[c] = phi > 0.0f;
-            C.v_bias[c] = fminf(M.baumgarte * fmaxf(phi, 0.0f) / M.sim_dt,
-                                M.max_depenetration_velocity);
-            if (HAS_CS) C.v_bias[c] = C.v_bias[c] * s.cs;
-            C.pn[c] = C.ptx[c] = C.pty[c] = 0.0f;
+            r.active |= (phi > 0.0f ? 1u : 0u) << p;
+            float bias = fminf(M.baumgarte * fmaxf(phi, 0.0f) / M.sim_dt,
+                               M.max_depenetration_velocity);
+            if (HAS_CS) bias = bias * s.cs;
+            r.b[p] = b;
+            r.v_bias[p] = bias;
+            r.pn[p] = r.ptx[p] = r.pty[p] = 0.0f;
+            if (M.iterations == 0) C.pn[c] = C.ptx[c] = C.pty[c] = 0.0f;
         }
     });
-    utrl_phase([&](int lane) {
-        for (int b = lane; b < UTRL_NB; b += kUtrlLanes) {
+    utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+        auto& C = s.u.c;
+        for (int b = lane; b < UTRL_NB; b += kUtrlGroup) {
             float n_active = 0.0f;
             for (int c = M.cp_start[b]; c < M.cp_end[b]; ++c)
                 n_active += C.active[c] ? 1.0f : 0.0f;
             C.jacobi[b] = 1.0f / fmaxf(n_active, 1.0f);
         }
     });
-    const float mu = 0.5f * (M.terrain_friction + s.fric);
     for (int it = 0; it < M.iterations; ++it) {
-        utrl_velocity_prop<true>(M, s, s.vv);
-        // every point's impulses against the same body velocities (Jacobi)
-        utrl_phase([&](int lane) {
-            for (int c = lane; c < UTRL_NCP; c += kUtrlLanes) {
-                const int b = M.cp_dyn[c];
-                const float* ww = C.wl[b];
-                const float* lw = C.wl[b] + 3;
-                const float kb = M.relaxation * C.jacobi[b];
-                const float* r = C.r_w[c];
-                const float vp0 = lw[0] + ww[1] * r[2] - ww[2] * r[1];
-                const float vp1 = lw[1] + ww[2] * r[0] - ww[0] * r[2];
-                const float vp2 = lw[2] + ww[0] * r[1] - ww[1] * r[0];
-                const bool act = C.active[c];
-                const float kn = kb * M.m_eff_n[c], kt = kb * M.m_eff_t[c];
-                const float pn = C.pn[c], ptx = C.ptx[c], pty = C.pty[c];
-                const float pn_new = act ? fmaxf(pn + kn * (C.v_bias[c] - vp2), 0.0f)
+        utrl_velocity_prop<true>(M, w, [](auto& s) { return s.vv; });
+        const bool first = it == 0, last = it == M.iterations - 1;
+        // every point's impulses against the same body velocities (Jacobi):
+        // every slot's body velocity read first, then the slots' updates
+        // and stores
+        utrl_phase(w, [&](auto& s, int lane, auto& r, auto&&...) {
+            auto& C = s.u.c;
+            float wv[kUtrlPoints][6];
+#pragma unroll
+            for (int p = 0; p < kUtrlPoints; ++p) {
+                const int c = lane + p * kUtrlGroup;
+                if (c >= UTRL_NCP) break;
+                const int b = r.b[p];
+                for (int k = 0; k < 6; ++k) wv[p][k] = C.wl[b][k];
+                if (first) {
+                    const float kb = M.relaxation * C.jacobi[b];
+                    r.kn[p] = kb * M.m_eff_n[c];
+                    r.kt[p] = kb * M.m_eff_t[c];
+                }
+            }
+#pragma unroll
+            for (int p = 0; p < kUtrlPoints; ++p) {
+                const int c = lane + p * kUtrlGroup;
+                if (c >= UTRL_NCP) break;
+                const float* ww = wv[p];
+                const float* lw = wv[p] + 3;
+                const float* rw = r.r_w[p];
+                const float vp0 = lw[0] + ww[1] * rw[2] - ww[2] * rw[1];
+                const float vp1 = lw[1] + ww[2] * rw[0] - ww[0] * rw[2];
+                const float vp2 = lw[2] + ww[0] * rw[1] - ww[1] * rw[0];
+                const bool act = r.active >> p & 1u;
+                const float kn = r.kn[p], kt = r.kt[p];
+                const float pn = r.pn[p], ptx = r.ptx[p], pty = r.pty[p];
+                const float pn_new = act ? fmaxf(pn + kn * (r.v_bias[p] - vp2), 0.0f)
                                          : 0.0f;
                 float ptx_n = ptx + (act ? -kt * vp0 : 0.0f);
                 float pty_n = pty + (act ? -kt * vp1 : 0.0f);
                 const float pt_norm = sqrtf(ptx_n * ptx_n + pty_n * pty_n);
-                const float cone = mu * pn_new;
+                const float cone = r.mu * pn_new;
                 const float scale = pt_norm > cone ? cone / (pt_norm + 1e-9f) : 1.0f;
                 ptx_n = ptx_n * scale;
                 pty_n = pty_n * scale;
-                C.dp[c][0] = ptx_n - ptx;
-                C.dp[c][1] = pty_n - pty;
-                C.dp[c][2] = pn_new - pn;
-                C.pn[c] = pn_new;
-                C.ptx[c] = ptx_n;
-                C.pty[c] = pty_n;
-            }
-        });
-        // each body's force from its points' increments, summed in point
-        // order into body coordinates, in the force pass's first phase
-        utrl_force_backward(M, s, s.gen, [&](int b) {
-            float nsum[3] = {0.f, 0.f, 0.f}, fsum[3] = {0.f, 0.f, 0.f};
-            for (int c = M.cp_start[b]; c < M.cp_end[b]; ++c) {
-                float nw[3];
-                utrl_cross(C.r_w[c], C.dp[c], nw);
-                for (int i = 0; i < 3; ++i) {
-                    nsum[i] += nw[i];
-                    fsum[i] += C.dp[c][i];
+                const float dp[3] = {ptx_n - ptx, pty_n - pty, pn_new - pn};
+                utrl_cross(rw, dp, C.nw[c]);
+                for (int i = 0; i < 3; ++i) C.dp[c][i] = dp[i];
+                r.pn[p] = pn_new;
+                r.ptx[p] = ptx_n;
+                r.pty[p] = pty_n;
+                if (last) {
+                    C.pn[c] = pn_new;
+                    C.ptx[c] = ptx_n;
+                    C.pty[c] = pty_n;
                 }
             }
-            utrl_mtv(s.K.R[b], nsum, s.f[b]);
-            utrl_mtv(s.K.R[b], fsum, s.f[b] + 3);
         });
-        utrl_chol_solve(M, s, s.gen, [&](int k, float x) { s.vv[k] = s.vv[k] + x; });
+        // each body's force from its points' increments and moments, summed
+        // in point order into body coordinates, on the lane that hands the
+        // body on
+        utrl_force_backward(M, w, [](auto& s) { return s.gen; },
+                            [&](auto& s, auto&, int b, float* f) {
+            auto& C = s.u.c;
+            float nsum[3] = {0.f, 0.f, 0.f}, fsum[3] = {0.f, 0.f, 0.f};
+#pragma unroll 4
+            for (int c = M.cp_start[b]; c < M.cp_end[b]; ++c)
+                for (int i = 0; i < 3; ++i) {
+                    nsum[i] += C.nw[c][i];
+                    fsum[i] += C.dp[c][i];
+                }
+            utrl_mtv(s.K.R[b], nsum, f);
+            utrl_mtv(s.K.R[b], fsum, f + 3);
+        });
+        utrl_chol_solve(M, w, [](auto& s) { return s.gen; },
+                        [&](auto& s, int k, float x) { s.vv[k] = s.vv[k] + x; });
     }
 }
 
 // ---------------------------------------------------------------------------
-// one substep and the whole control step of one env
+// one substep and the whole control step of a warp's envs
 // ---------------------------------------------------------------------------
 
-template <bool HAS_GH, bool HAS_CS, class S>
-UTRL_HD void utrl_substep(const ModelTables& M, S& s) {
-    utrl_fk(M, s);
-    utrl_velocity_prop<false>(M, s, s.v);
-    utrl_bias(M, s);
-    utrl_crba(M, s);
-    utrl_chol_factor(M, s);
+template <bool HAS_GH, bool HAS_CS, class W>
+UTRL_HD void utrl_substep(const ModelTables& M, const W& w) {
+    utrl_fk(M, w);
+    utrl_velocity_prop<false>(M, w, [](auto& s) { return s.v; });
+    utrl_bias(M, w);
+    utrl_crba(M, w);
+    utrl_chol_factor(M, w);
     // PD torque + clip, passive terms, right-hand side (in place of bias)
-    utrl_phase([&](int lane) {
-        for (int j = lane; j < UTRL_NJ; j += kUtrlLanes) {
+    utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+        for (int j = lane; j < UTRL_NJ; j += kUtrlGroup) {
             float t = M.kp[j] * (s.target[j] - s.q[j]) - M.kd[j] * s.v[6 + j];
             if (M.clip_torque) t = utrl_clip(t, -M.torque_limit[j], M.torque_limit[j]);
             s.tau[j] = t;
@@ -916,18 +1105,18 @@ UTRL_HD void utrl_substep(const ModelTables& M, S& s) {
                 passive = passive - M.dof_friction[j] * tanhf(qd / 0.1f);
             s.rhs[6 + j] = (t + passive) - s.rhs[6 + j];
         }
-        if (lane == kUtrlLanes - 1)
+        if (lane == kUtrlGroup - 1)
             for (int k = 0; k < 6; ++k) s.rhs[k] = -s.rhs[k];
     });
-    utrl_chol_solve(M, s, s.rhs,
-                    [&](int k, float x) { s.vv[k] = s.v[k] + M.sim_dt * x; });
+    utrl_chol_solve(M, w, [](auto& s) { return s.rhs; },
+                    [&](auto& s, int k, float x) { s.vv[k] = s.v[k] + M.sim_dt * x; });
 
-    utrl_contact<HAS_GH, HAS_CS>(M, s);
+    utrl_contact<HAS_GH, HAS_CS>(M, w);
 
     // velocity caps, then semi-implicit integration in the substep-start
     // frame and the joint-limit projection
-    utrl_phase([&](int lane) {
-        for (int j = lane; j < UTRL_NJ; j += kUtrlLanes) {
+    utrl_phase(w, [&](auto& s, int lane, auto&&...) {
+        for (int j = lane; j < UTRL_NJ; j += kUtrlGroup) {
             const float vj = utrl_clip(s.vv[6 + j], -M.dof_vel_limit[j],
                                        M.dof_vel_limit[j]);
             float qj = s.q[j] + M.sim_dt * vj;
@@ -938,7 +1127,7 @@ UTRL_HD void utrl_substep(const ModelTables& M, S& s) {
             s.q[j] = utrl_clip(qj, lo, up);
             s.v[6 + j] = qd;
         }
-        if (lane != kUtrlLanes - 1) return;
+        if (lane != kUtrlGroup - 1) return;
         float vv[6];
         for (int k = 0; k < 3; ++k) {
             vv[k] = utrl_clip(s.vv[k], -M.max_angular_velocity, M.max_angular_velocity);
@@ -950,12 +1139,12 @@ UTRL_HD void utrl_substep(const ModelTables& M, S& s) {
         utrl_mv(s.K.R[0], vv + 3, vw);
         for (int i = 0; i < 3; ++i) s.bp[i] = s.bp[i] + M.sim_dt * vw[i];
         const float h = 0.5f * M.sim_dt;
-        const float x = s.bq[0], y = s.bq[1], z = s.bq[2], w = s.bq[3];
+        const float x = s.bq[0], y = s.bq[1], z = s.bq[2], q3 = s.bq[3];
         const float ox = om[0], oy = om[1], oz = om[2];
-        const float nx = x + h * (ox * w + (oy * z - oz * y));
-        const float ny = y + h * (oy * w + (oz * x - ox * z));
-        const float nz = z + h * (oz * w + (ox * y - oy * x));
-        const float nw = w + h * -((ox * x + oy * y) + oz * z);
+        const float nx = x + h * (ox * q3 + (oy * z - oz * y));
+        const float ny = y + h * (oy * q3 + (oz * x - ox * z));
+        const float nz = z + h * (oz * q3 + (ox * y - oy * x));
+        const float nw = q3 + h * -((ox * x + oy * y) + oz * z);
         const float n2 = (nx * nx + ny * ny) + (nz * nz + nw * nw);
         const float inv = utrl_rsqrt(fmaxf(n2, 1e-18f));
         s.bq[0] = nx * inv;
@@ -966,45 +1155,49 @@ UTRL_HD void utrl_substep(const ModelTables& M, S& s) {
     });
 }
 
-// Row n of every [N, k] operand in, row n of every [N, k] output out. With
-// HAS_GH, column n of gh_in [NCP, n_envs] in and of pxy_out [2*NCP, n_envs]
-// out (the JAX package's row layout). With HAS_CS, element n of cstiff
-// [n_envs] in. `s` is the env's scratch, for the warp that computes it.
+// The control step of the warp's envs w.n0 .. w.n0 + 32 / G - 1: row n of
+// every [N, k] operand in, row n of every [N, k] output out. With HAS_GH,
+// column n of gh_in [NCP, n_envs] in and of pxy_out [2*NCP, n_envs] out
+// (the JAX package's row layout). With HAS_CS, element n of cstiff
+// [n_envs] in. A group whose env is past n_envs (in the last warp) runs
+// every phase on the last env's inputs and writes nothing.
 template <bool HAS_GH, bool HAS_CS>
-UTRL_HD void utrl_control_step_env(
-    const ModelTables& M, UtrlScratch<HAS_GH>& s, int n, int n_envs,
+UTRL_HD void utrl_control_step_warp(
+    const ModelTables& M, const UtrlWarp<HAS_GH>& w, int n_envs,
     const float* bp_in, const float* bq_in, const float* q_in, const float* v_in,
     const float* target_in, const float* friction, const float* mass_scale,
     const float* gh_in, const float* cstiff,
     float* bp_out, float* bq_out, float* q_out, float* v_out, float* tau_out,
     float* cf_out, float* rbp_out, float* rbv_out, float* pxy_out) {
-    utrl_phase([&](int lane) {
+    utrl_phase(w, [&](auto& s, int lane, auto&, int n) {
+        if (n >= n_envs) n = n_envs - 1;
         if (lane < 3) s.bp[lane] = bp_in[3 * n + lane];
         if (lane < 4) s.bq[lane] = bq_in[4 * n + lane];
-        for (int j = lane; j < UTRL_NJ; j += kUtrlLanes) {
+        for (int j = lane; j < UTRL_NJ; j += kUtrlGroup) {
             s.q[j] = q_in[UTRL_NJ * n + j];
             s.target[j] = target_in[UTRL_NJ * n + j];
             s.tau[j] = 0.0f;
         }
-        for (int k = lane; k < UTRL_NV; k += kUtrlLanes) s.v[k] = v_in[UTRL_NV * n + k];
+        for (int k = lane; k < UTRL_NV; k += kUtrlGroup) s.v[k] = v_in[UTRL_NV * n + k];
         if (HAS_GH)
-            for (int c = lane; c < UTRL_NCP; c += kUtrlLanes)
+            for (int c = lane; c < UTRL_NCP; c += kUtrlGroup)
                 s.gh[c] = gh_in[c * n_envs + n];
-        if (lane == kUtrlLanes - 1) {
+        if (lane == kUtrlGroup - 1) {
             s.fric = friction[n];
             s.mass_scale = mass_scale[n];
             s.cs = HAS_CS ? cstiff[n] : 1.0f;
         }
     });
 
-    for (int sub = 0; sub < M.decimation; ++sub) utrl_substep<HAS_GH, HAS_CS>(M, s);
+    for (int sub = 0; sub < M.decimation; ++sub) utrl_substep<HAS_GH, HAS_CS>(M, w);
 
     // settled state: world kinematics, report bodies, contact forces
-    utrl_fk(M, s);
-    utrl_velocity_prop<false>(M, s, s.v);
-    const auto& C = s.u.c;
-    utrl_phase([&](int lane) {
-        for (int r = lane; r < UTRL_NRB; r += kUtrlLanes) {
+    utrl_fk(M, w);
+    utrl_velocity_prop<false>(M, w, [](auto& s) { return s.v; });
+    utrl_phase(w, [&](auto& s, int lane, auto&, int n) {
+        if (n >= n_envs) return;
+        const auto& C = s.u.c;
+        for (int r = lane; r < UTRL_NRB; r += kUtrlGroup) {
             const int b = M.rb_dyn[r];
             const float* rp = M.rb_pos[r];
             float t[3], wr[3], vl[3];
@@ -1026,10 +1219,11 @@ UTRL_HD void utrl_control_step_env(
             }
         }
     });
-    utrl_phase([&](int lane) {
+    utrl_phase(w, [&](auto& s, int lane, auto&, int n) {
+        if (n >= n_envs) return;
         if (HAS_GH)
             // end-of-step world xy of every point: p_b + R_b cp_pos
-            for (int c = lane; c < UTRL_NCP; c += kUtrlLanes) {
+            for (int c = lane; c < UTRL_NCP; c += kUtrlGroup) {
                 const int b = M.cp_dyn[c];
                 const float* rc = M.cp_pos[c];
                 for (int i = 0; i < 2; ++i)
@@ -1040,21 +1234,22 @@ UTRL_HD void utrl_control_step_env(
             }
         if (lane < 3) bp_out[3 * n + lane] = s.bp[lane];
         if (lane < 4) bq_out[4 * n + lane] = s.bq[lane];
-        for (int j = lane; j < UTRL_NJ; j += kUtrlLanes) {
+        for (int j = lane; j < UTRL_NJ; j += kUtrlGroup) {
             q_out[UTRL_NJ * n + j] = s.q[j];
             tau_out[UTRL_NJ * n + j] = s.tau[j];
         }
-        for (int k = lane; k < UTRL_NV; k += kUtrlLanes) v_out[UTRL_NV * n + k] = s.v[k];
+        for (int k = lane; k < UTRL_NV; k += kUtrlGroup) v_out[UTRL_NV * n + k] = s.v[k];
     });
 }
 
 #ifdef __CUDACC__
-// One warp per env, kUtrlWarps envs per block, each warp's UtrlScratch in
-// the block's dynamic shared memory. __launch_bounds__ asks for
-// kUtrlBlocksPerSM resident blocks (64 registers a thread); whether that
-// many fit the SM's shared memory is what utrl_resident_blocks reports
-// from the runtime's occupancy calculator (chip_smoke.py's build phase
-// gates it: 4096 envs resident at once on the H100's 132 SMs).
+// kUtrlWarps warps of 32 / G envs per block, each env's UtrlScratch in the
+// block's dynamic shared memory, each lane's UtrlLane in its registers.
+// __launch_bounds__ asks for kUtrlBlocksPerSM resident blocks (32 envs an
+// SM: 255 registers a thread); whether that many fit the SM's
+// shared memory is what utrl_resident_blocks reports from the runtime's
+// occupancy calculator (chip_smoke.py's build phase gates it: 4096 envs
+// resident at once on the H100's 132 SMs).
 template <bool HAS_GH, bool HAS_CS>
 __global__ void __launch_bounds__(kUtrlLanes * kUtrlWarps, kUtrlBlocksPerSM)
 utrl_control_step_kernel(
@@ -1070,23 +1265,24 @@ utrl_control_step_kernel(
     float* __restrict__ rbp_out, float* __restrict__ rbv_out,
     float* __restrict__ pxy_out) {
     extern __shared__ float utrl_smem[];
-    const int w = (int)(threadIdx.x / kUtrlLanes);
-    const int n = (int)blockIdx.x * kUtrlWarps + w;
-    if (n >= n_envs) return;  // the whole warp: one env per warp
-    UtrlScratch<HAS_GH>* scratch = reinterpret_cast<UtrlScratch<HAS_GH>*>(utrl_smem);
-    utrl_control_step_env<HAS_GH, HAS_CS>(
-        *M, scratch[w], n, n_envs, bp, bq, q, v, target, friction, mass_scale,
-        gh, cstiff, bp_out, bq_out, q_out, v_out, tau_out, cf_out, rbp_out,
-        rbv_out, pxy_out);
+    const int wi = (int)(threadIdx.x / kUtrlLanes);
+    const int n0 = ((int)blockIdx.x * kUtrlWarps + wi) * kUtrlEnvsPerWarp;
+    if (n0 >= n_envs) return;  // the whole warp: no env of it is real
+    UtrlLane lane;
+    const UtrlWarp<HAS_GH> w{
+        utrl_smem + wi * kUtrlEnvsPerWarp * UtrlLayout<HAS_GH>::stride, &lane, n0};
+    utrl_control_step_warp<HAS_GH, HAS_CS>(
+        *M, w, n_envs, bp, bq, q, v, target, friction, mass_scale, gh, cstiff,
+        bp_out, bq_out, q_out, v_out, tau_out, cf_out, rbp_out, rbv_out, pxy_out);
 }
 
 // The <HAS_GH, HAS_CS> instance's dynamic shared memory per block, into
 // `smem`; a block above 48 KB opts in to it here.
 template <bool HAS_GH, bool HAS_CS>
 cudaError_t utrl_opt_in(int* smem) {
-    static_assert(kUtrlWarps * sizeof(UtrlScratch<HAS_GH>) <= 232448,
+    static_assert(kUtrlEnvsPerBlock * UtrlLayout<HAS_GH>::stride * 4 <= 232448,
                   "a block's scratch exceeds the 227 KB a block can use");
-    *smem = (int)(kUtrlWarps * sizeof(UtrlScratch<HAS_GH>));
+    *smem = kUtrlEnvsPerBlock * UtrlLayout<HAS_GH>::stride * 4;
     if (*smem <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(utrl_control_step_kernel<HAS_GH, HAS_CS>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1106,7 +1302,7 @@ int utrl_launch(const void* model, int n_envs, const float* bp, const float* bq,
     int smem = 0;
     const cudaError_t err = utrl_opt_in<HAS_GH, HAS_CS>(&smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = (n_envs + kUtrlWarps - 1) / kUtrlWarps;
+    const int blocks = (n_envs + kUtrlEnvsPerBlock - 1) / kUtrlEnvsPerBlock;
     utrl_control_step_kernel<HAS_GH, HAS_CS><<<blocks, kUtrlLanes * kUtrlWarps, smem, (cudaStream_t)stream>>>(
         (const ModelTables*)model, n_envs, bp, bq, q, v, target, friction,
         mass_scale, gh, cstiff, bp_out, bq_out, q_out, v_out, tau_out, cf_out,
@@ -1137,13 +1333,14 @@ extern "C" long long utrl_model_bytes(void) {
     return (long long)sizeof(ModelTables);
 }
 
-// bytes of one env's (one warp's) scratch, as the kernel's launch sizes it
+// bytes of one env's scratch, as the kernel's launch sizes it (padded to
+// its stride)
 extern "C" long long utrl_scratch_bytes(int terrain) {
-    return terrain ? (long long)sizeof(UtrlScratch<true>)
-                   : (long long)sizeof(UtrlScratch<false>);
+    return 4LL * (terrain ? UtrlLayout<true>::stride : UtrlLayout<false>::stride);
 }
 
-// envs (warps) per block, and the resident blocks per SM that
+// lanes per env (G), envs per block, and the resident blocks per SM that
 // __launch_bounds__ asks for
-extern "C" int utrl_envs_per_block(void) { return kUtrlWarps; }
+extern "C" int utrl_lanes_per_env(void) { return kUtrlGroup; }
+extern "C" int utrl_envs_per_block(void) { return kUtrlEnvsPerBlock; }
 extern "C" int utrl_blocks_per_sm_asked(void) { return kUtrlBlocksPerSM; }

@@ -1,6 +1,7 @@
 // Kernel K2: the decimated physics control step with a per-env contact
-// stiffness, on flat ground and on heightfield terrain, one warp per env,
-// for Hopper (nvcc -gencode arch=compute_90a,code=sm_90a).
+// stiffness, on flat ground and on heightfield terrain, a group of 8 lanes
+// per env and four envs a warp, for Hopper (nvcc -gencode
+// arch=compute_90a,code=sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernel
 // unitree_rl_gym_tpu/physics/pallas_step.py::_kernel as launched by
@@ -19,11 +20,12 @@
 // cs=True); at the go2 handstand's sizes (79 contact points, decimation 5)
 // that is 0.37 MFLOP per env, 1.5 GFLOP at 4096 envs, ~23 us at 67 TFLOP/s
 // fp32, against 5.9 MB of state in and out, ~2 us at 3.35 TB/s. The design
-// is K1's warp per env with its scratch in shared memory (control_step.cu;
-// ~6.7 KB a warp at 79 points; chip_smoke.py's phase `time_cs` prints the
-// resident blocks per SM that the runtime grants).
-// The one-thread-per-env form it replaces took 2.14 ms per launch at 4096
-// handstand envs (H100 80GB HBM3, 700 W; PERF.md §6).
+// is K1's (control_step.cu), sized for K2: its 79 points are ten a lane
+// (c = lane + 8 p), each lane's kept in its registers across a substep's
+// eight sweeps; ~6.3 KB of shared memory an env at 79 points
+// (chip_smoke.py's phase `time_cs` prints it and the resident blocks per
+// SM that the runtime grants); PERF.md §6 holds its card times beside
+// the earlier one-thread-per-env and one-warp-per-env forms'.
 //
 // Built by physics/cuda_step.py into its own shared library with a plain C
 // interface (loaded with ctypes), in parallel with control_step.cu's.

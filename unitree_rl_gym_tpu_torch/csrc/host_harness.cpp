@@ -1,14 +1,18 @@
 // Host build of the per-env body of kernels K1, K3 and K2
 // (control_step.cuh), for tests on machines without a GPU: g++ -O1 -shared
-// -fPIC, loaded with ctypes. It runs the kernel's warp schedule with each
-// phase a loop over the 32 lanes, one env after another, on a scratch
-// filled with NaN before every env (a read of anything no phase wrote
-// shows in the outputs). -DUTRL_HOST_LANES_REVERSED runs each phase's lanes
-// in reverse. Never a runtime path of the port.
+// -fPIC, loaded with ctypes. It runs the kernel's warp schedule, each
+// phase a loop over the 32 lanes of a warp of 32 / G envs (G lanes each),
+// one warp after another, on one scratch buffer of the warp's envs at the
+// card's stride and one UtrlLane per lane, both filled with NaN before
+// every warp (a read of anything no phase wrote shows in the outputs). The
+// last warp of an n_envs that is not a multiple of 32 / G has groups
+// without an env, as on the card. -DUTRL_HOST_LANES_REVERSED runs each
+// phase's lanes in reverse: the lanes of each group and the groups both.
+// Never a runtime path of the port.
 #include <math.h>
 #include <string.h>
 
-#include <memory>
+#include <vector>
 
 #include "control_step.cuh"
 
@@ -22,12 +26,15 @@ static int run(const void* model, int n_envs, const float* bp, const float* bq,
                float* v_out, float* tau_out, float* cf_out, float* rbp_out,
                float* rbv_out, float* pxy_out) {
     const ModelTables& M = *(const ModelTables*)model;
-    std::unique_ptr<UtrlScratch<HAS_GH>> s(new UtrlScratch<HAS_GH>);
-    for (int n = 0; n < n_envs; ++n) {
-        float* words = reinterpret_cast<float*>(s.get());
-        for (size_t i = 0; i < sizeof(*s) / sizeof(float); ++i) words[i] = NAN;
-        utrl_control_step_env<HAS_GH, HAS_CS>(
-            M, *s, n, n_envs, bp, bq, q, v, target, friction, mass_scale, gh,
+    std::vector<float> scratch((size_t)kUtrlEnvsPerWarp * UtrlLayout<HAS_GH>::stride);
+    std::vector<UtrlLane> lanes(kUtrlLanes);
+    for (int n0 = 0; n0 < n_envs; n0 += kUtrlEnvsPerWarp) {
+        // all bits set: NaN in every float
+        memset(scratch.data(), 0xff, scratch.size() * sizeof(float));
+        memset(lanes.data(), 0xff, lanes.size() * sizeof(UtrlLane));
+        const UtrlWarp<HAS_GH> w{scratch.data(), lanes.data(), n0};
+        utrl_control_step_warp<HAS_GH, HAS_CS>(
+            M, w, n_envs, bp, bq, q, v, target, friction, mass_scale, gh,
             cstiff, bp_out, bq_out, q_out, v_out, tau_out, cf_out, rbp_out,
             rbv_out, pxy_out);
     }

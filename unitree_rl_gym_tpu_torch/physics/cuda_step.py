@@ -11,9 +11,11 @@ has_cs=False``), K3 its terrain variant (``has_gh=True``), K2 its
 contact-stiffness variant (``has_cs=True``, with or without ``has_gh``);
 K4 replaces ``control_step_pallas_sharded``, which runs one instance of
 the kernel per device of the ("env",) mesh on its local env block.
-The per-env body is ``csrc/control_step.cuh`` (one warp per env, its
-working set in the warp's slice of shared memory; one template, ``HAS_GH``
-x ``HAS_CS``), scheduled by the level tables :func:`model_tables` appends
+The per-env body is ``csrc/control_step.cuh`` (a group of 8 lanes per
+env, four envs a warp, each env's working set in its slice of shared
+memory and what one lane alone reads across phases in its registers; one
+template, ``HAS_GH`` x ``HAS_CS``), scheduled by the level and chain tables
+:func:`model_tables` appends
 (:func:`schedule_tables`); the notes at the top of
 ``csrc/control_step.cu`` (K1, K3) and ``csrc/control_step_cs.cu`` (K2) say
 what bounds them on the H100 and what the design does about it;
@@ -96,7 +98,7 @@ def size_defines(m: soa.SoAModel) -> Tuple[str, ...]:
 
 def tree_levels(m: soa.SoAModel) -> np.ndarray:
     """Depth of every body in the kinematic tree (base 0): the levels by
-    which the kernel's tree recursions run, one level a phase. Bodies come
+    which the kernel's CRBA composites run, one level a phase. Bodies come
     after their parents (``parent[i] < i``), as the recursions assume."""
     depth = np.zeros(m.nb, np.int32)
     for i in range(1, m.nb):
@@ -138,23 +140,66 @@ def chol_pattern(m: soa.SoAModel) -> np.ndarray:
     return nz
 
 
-def chol_levels(m: soa.SoAModel) -> Tuple[np.ndarray, np.ndarray]:
-    """(forward, backward) elimination-tree level of every position: an
-    entry's level is one more than the largest level of the entries its
-    sum needs (forward: the columns k < i with L[i][k] a structural
-    nonzero; backward: the rows k > i with L[k][i] one). The kernel's factor
-    and solves run the joints' levels one a phase."""
+def _chains(parent, root_alone=False):
+    """Chains of the forest ``parent`` (-1 at a root), by which the kernel
+    runs a pass over it with a lane a chain: a chain starts at a root, at a
+    root's child with ``root_alone``, or at a child of a node with more
+    than one child, and goes on to a node's only child. Returns (the nodes
+    chain by chain, each from its head; each chain's first entry, then the
+    entry count; each level's first chain, then the chain count), the
+    chains ordered by level (a root's chain 0, any other one more than the
+    chain of its head's parent), then by head."""
+    n = len(parent)
+    children = [[c for c in range(n) if parent[c] == i] for i in range(n)]
+    depth = [0] * n
+    for i in range(n):
+        k = i
+        while parent[k] >= 0:
+            k, depth[i] = parent[k], depth[i] + 1
+
+    def head(b):
+        p = parent[b]
+        return (p < 0 or (root_alone and parent[p] < 0)
+                or len(children[p]) != 1)
+
+    chains, level, chain_of = [], [], {}
+    for h in sorted((b for b in range(n) if head(b)), key=lambda b: (depth[b], b)):
+        ch = [h]
+        while len(children[ch[-1]]) == 1 and not head(children[ch[-1]][0]):
+            ch.append(children[ch[-1]][0])
+        level.append(0 if parent[h] < 0 else level[chain_of[parent[h]]] + 1)
+        chain_of.update({b: len(chains) for b in ch})
+        chains.append(ch)
+    order = sorted(range(len(chains)), key=lambda c: (level[c], chains[c][0]))
+    nodes = [b for c in order for b in chains[c]]
+    first = np.cumsum([0] + [len(chains[c]) for c in order])
+    lv = [level[c] for c in order]
+    return (np.asarray(nodes, np.int32), first.astype(np.int32),
+            np.searchsorted(lv, np.arange(max(lv) + 2)).astype(np.int32))
+
+
+def body_chains(m: soa.SoAModel):
+    """Chains of the kinematic tree (``_chains``): the base alone, level 0;
+    each of its children heads a chain of level 1 (go2: a leg, hip to
+    calf). The kernel's FK, velocity, RNEA and force passes run a phase a
+    level, each lane a chain: down it (FK, velocities, accelerations) or
+    up it (forces)."""
+    return _chains(list(m.parent), root_alone=True)
+
+
+def elim_chains(m: soa.SoAModel):
+    """Chains of the joints' elimination tree (``_chains``): a joint
+    position's parent is its column's first structural nonzero below the
+    diagonal, a root one whose parent is a base position (go2: a leg, calf
+    to hip, under the base rows). An entry (i, j) of L needs the entries of
+    the columns k < j where both rows are structural nonzeros: j's
+    descendants. The kernel's factor and forward solve run the levels from
+    the deepest, each lane a chain from its tail up; the back solve the
+    levels from 0, each chain from its head down."""
     nz = chol_pattern(m)
-    nv = m.nv
-    fwd = np.zeros(nv, np.int32)
-    for i in range(nv):
-        deps = np.nonzero(nz[i, :i])[0]
-        fwd[i] = 1 + fwd[deps].max() if deps.size else 0
-    bwd = np.zeros(nv, np.int32)
-    for i in range(nv - 1, -1, -1):
-        deps = np.nonzero(nz[i + 1:, i])[0] + i + 1
-        bwd[i] = 1 + bwd[deps].max() if deps.size else 0
-    return fwd, bwd
+    nj = m.nj
+    par = [int(np.nonzero(nz[j + 1:, j])[0][0]) + j + 1 for j in range(nj)]
+    return _chains([p if p < nj else -1 for p in par])
 
 
 def _bits(sets, n) -> np.ndarray:
@@ -169,22 +214,27 @@ def _bits(sets, n) -> np.ndarray:
 def schedule_tables(m: soa.SoAModel) -> list:
     """The warp schedule's fields of ``ModelTables``, in order: bodies by
     depth, the depth count, each body's children, each point's body, L's
-    row and column patterns, positions by forward and backward level, the
-    two level counts (sets as bit masks); the bodies listed by depth with
-    each depth's first entry, and the points listed by report body with
-    each report body's [start, end)."""
+    row and column patterns (sets as bit masks); the body chains (bodies,
+    each chain's first entry, each level's first chain, the level count)
+    and the elimination chains (joint positions, the same); the bodies
+    listed by depth with each depth's first entry, and the points listed by
+    report body with each report body's [start, end)."""
     nb, nv = m.nb, m.nv
     if nb > 32 or nv > 32:
         raise ValueError(f"{nb} bodies / {nv} dofs: the tables hold 32 bits")
     depth = tree_levels(m)
     nz = chol_pattern(m)
-    fwd, bwd = chol_levels(m)
     cp_dyn = np.zeros(m.ncp, np.int32)
     for b, (s, e) in enumerate(m.cp_slice):
         cp_dyn[s:e] = b
     cp_rb = np.zeros(m.ncp, np.int32)
     for r, idx in enumerate(m.cp_rb):
         cp_rb[list(idx)] = r
+    chains = []
+    for nodes, first, lvl in (body_chains(m), elim_chains(m)):
+        n = len(nodes)
+        chains += [nodes, np.pad(first, (0, n + 1 - len(first)), mode="edge"),
+                   np.pad(lvl, (0, n + 1 - len(lvl)), mode="edge"), [len(lvl) - 1]]
     return [
         _bits([np.nonzero(depth == d)[0] for d in range(depth.max() + 1)], nb),
         [depth.max() + 1],
@@ -192,9 +242,7 @@ def schedule_tables(m: soa.SoAModel) -> list:
         cp_dyn,
         _bits([np.nonzero(nz[i, :i])[0] for i in range(nv)], nv),
         _bits([np.nonzero(nz[i + 1:, i])[0] + i + 1 for i in range(nv)], nv),
-        _bits([np.nonzero(fwd == lv)[0] for lv in range(fwd.max() + 1)], nv),
-        _bits([np.nonzero(bwd == lv)[0] for lv in range(bwd.max() + 1)], nv),
-        [fwd.max() + 1, bwd.max() + 1],
+        *chains,
         np.argsort(depth, kind="stable"),
         np.pad(np.searchsorted(np.sort(depth), np.arange(depth.max() + 1)),
                (0, nb - depth.max() - 1)),
@@ -420,6 +468,8 @@ def _library(m: soa.SoAModel, library: str = "control_step") -> ctypes.CDLL:
             lib.utrl_model_bytes.argtypes = []
             lib.utrl_scratch_bytes.restype = ctypes.c_longlong
             lib.utrl_scratch_bytes.argtypes = [ctypes.c_int]
+            lib.utrl_lanes_per_env.restype = ctypes.c_int
+            lib.utrl_lanes_per_env.argtypes = []
             lib.utrl_envs_per_block.restype = ctypes.c_int
             lib.utrl_envs_per_block.argtypes = []
             lib.utrl_resident_blocks.restype = ctypes.c_int
@@ -435,9 +485,16 @@ def _library(m: soa.SoAModel, library: str = "control_step") -> ctypes.CDLL:
 
 def scratch_bytes(m: soa.SoAModel, library: str = "control_step",
                   terrain: bool = False) -> int:
-    """One warp's (one env's) shared-memory scratch in the build of
-    ``library`` for this model's sizes, with or without ``gh``."""
+    """One env's shared-memory scratch, padded to the stride at which the
+    launch lays out the envs of a warp, in the build of ``library`` for
+    this model's sizes, with or without ``gh``."""
     return int(_library(m, library).utrl_scratch_bytes(int(terrain)))
+
+
+def lanes_per_env(m: soa.SoAModel, library: str = "control_step") -> int:
+    """The lanes of a warp that compute one env (G) in the build of
+    ``library`` for this model's sizes."""
+    return int(_library(m, library).utrl_lanes_per_env())
 
 
 def resident_envs(m: soa.SoAModel, library: str = "control_step",
@@ -596,8 +653,9 @@ def control_step_sharded(m: soa.SoAModel, cparams, pd, sim_dt, decimation,
     device. Every operand holds the block's ``n_local`` envs; ``gh`` is the
     block's contiguous [ncp, n_local] rows (a strided view of the global
     rows raises) and aux's ``p_xy`` comes back as [2*ncp, n_local]. Envs
-    are independent and the kernel runs one warp per env, so the outputs
-    are the bits of the block's rows of a launch over all envs. Raises like
+    are independent (each env's group of lanes computes it alone, and a
+    group without an env writes nothing), so the outputs are the bits of
+    the block's rows of a launch over all envs. Raises like
     K1's, and on a batch that is not the block's."""
     n = state.joint_q.shape[0]
     if n != block.n_local:
