@@ -4,30 +4,34 @@ NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It drives the port's four paths at 4096 envs — the go2 flat policy
+It drives the port's five paths at 4096 envs — the go2 flat policy
 rollout of ``scripts/play.py`` with the pretrained MLP actor [512, 256,
 128] (kernel K1), PPO training of go2 on heightfield terrain with the
 terrain curriculum through ``OnPolicyRunner.learn`` (kernel K3), the
 go2 handstand robustness fine-tune from the shipped policy with contact
 stiffness, friction, push, PD-gain and actuation-delay DR and PPO's
-nan guard, anchor KL and class weights (kernel K2), and env data-parallel
+nan guard, anchor KL and class weights (kernel K2), env data-parallel
 go2 training over 2 torch.distributed ranks (kernel K4: each rank's launch
-of its K1, K3 or K2 instance on its 2048-env block) — and holds every
-kernel of those paths against its plain PyTorch version on the same
-inputs (K4 on each rank's block, and against the rows of a one-process
-launch, bit for bit):
+of its K1, K3 or K2 instance on its 2048-env block), and the humanoids
+g1, h1 and h1_2 with their LSTM actor-critics: play of the shipped
+policies and g1 training with recurrent PPO (K1 and K3 at the humanoids'
+sizes) — and holds every kernel of those paths against its plain PyTorch
+version on the same inputs (K4 on each rank's block, and against the rows
+of a one-process launch, bit for bit):
 
   1. device   the card's name and power limit (nvidia-smi);
   2. build    every library from source with nvcc, all started together:
               csrc/control_step.cu (K1, K3) and csrc/control_step_cs.cu
               (K2) at go2's sizes and at the handstand's (79 contact
-              points); prints every instance's ptxas report (registers,
+              points), and csrc/control_step.cu at g1's, h1's and h1_2's;
+              prints every instance's ptxas report (registers,
               stack frame, spills), the lanes per env, each instance's
               shared-memory scratch per env and the blocks per SM that the
               CUDA runtime's occupancy calculator grants it; no instance
               of any library may spill a register, and the resident blocks
               of every instance a path runs (K1, K3, K2 flat, K2 terrain,
-              K1 at the handstand's sizes) must hold all 4096 envs at once;
+              K1 at the handstand's sizes, K1 at each humanoid's, K3 at
+              g1's and h1_2's) must hold all 4096 envs at once;
   3. compare  one control step through K1 (``backend.control_step``, the
               env's path) and through the plain version
               (``backend.control_step_soa``) at N=4096, from a fresh reset and
@@ -39,7 +43,8 @@ launch, bit for bit):
               0.1% of the envs (4 of 4096) may be excused; those envs are
               counted and their largest errors printed. The largest state
               error must be the earlier kernels' to the last bit
-              (``PARENT_MAX_ABS_ERR``), and one more launch over the first
+              (``PARENT_MAX_ABS_ERR``: 0, the plain version's bits), and
+              one more launch over the first
               4095 envs (its last warp one env short) must give the first
               4095 rows of the 4096-env launch bit for bit (so for K3 and
               K2 in phases 7 and 12);
@@ -147,6 +152,32 @@ launch, bit for bit):
  20. dp_terrain go2_terrain as 2 ranks x 2048, one warm-up + 2 iterations:
               K4 over K3 with each rank's gh carry and window refresh;
               counts and finiteness as in dp_train.
+ 21-24. the humanoids (``humanoid_phases``), each instance of
+              HUMANOID_INSTANCES (K1 at g1's, h1's and h1_2's sizes, K3 at
+              g1's and h1_2's on bench.py's heightfield with the curriculum):
+ 21. compare_humanoid  one control step through the instance and through
+              the plain version at N=4096, from the reset and after 100
+              steps (terrain: 24) of the shipped LSTM policy
+              (``resources/pre_train/{g1,h1,h1_2,g1_terrain}``; h1_2's on
+              terrain), with K1's tolerance, excuse rule and 4095-env bit
+              check; the largest state error is printed as the instance's
+              ``PARENT_MAX_ABS_ERR`` entry;
+ 22. time_humanoid  the instance and the plain version (CUDA events),
+              its bound, ptxas report, scratch and resident blocks; K1 at
+              g1's sizes also on 132 envs (one env's chain);
+ 23. play_humanoid  400 steps of play's rollout with the shipped h1_2, g1
+              and h1 LSTM policies (the actor and its carry on the card):
+              K1 launched once per step and never K3, K2 or K4; h1_2's and
+              g1's non-timeout terminations after the first third at most
+              PLAY_FALL_BAR of the envs (h1's printed);
+ 24. train_g1 ``OnPolicyRunner.learn`` on g1 flat with the LSTM
+              actor-critic and recurrent PPO: one warm-up iteration, then
+              G1_TRAIN_ITERS with the counts zeroed just before (K1 24
+              times per iteration, never K3, K2 or K4), every metric
+              finite, lr in [1e-5, 1e-2], the last checkpoint (LSTM
+              included) loads into a fresh runner bit for bit; then one
+              profiled iteration (profile_train_g1: device ms by kernel,
+              idle share).
 
 Each phase prints one JSON line with its wall time. Any failure raises and
 the script exits non-zero; without CUDA it exits non-zero before printing a
@@ -180,6 +211,21 @@ DP_WORLD = 2             # ranks of the data-parallel phases, on one card
 DP_TRAIN_ITERS = 5       # counted data-parallel flagship iterations
 DP_TERRAIN_ITERS = 2     # counted data-parallel go2_terrain iterations
 DP_PARITY_ATOL = 1e-4    # 1 rank vs 2 ranks after one float32 iteration
+HUMANOID_WALK_STEPS = 100     # LSTM policy steps before the second flat comparison
+HUMANOID_TERRAIN_STEPS = 24   # ... before the second terrain comparison
+PLAY_HUMANOID_STEPS = 400     # steps of each pretrained humanoid's play
+G1_TRAIN_ITERS = 5            # counted g1 training iterations
+# non-timeout terminations after the first third of play, over the envs:
+# go2's bar (1%), unless the JAX package's own play of the same artifact
+# misses it (tests/jax_play_falls.py on the CPU, 64 envs, the same steps;
+# PERF.md), in which case its rate plus one percentage point
+PLAY_FALL_BAR = {"h1_2": 0.01, "g1": 0.01}
+# the humanoid instances the paths run: (name, task, terrain, artifact)
+HUMANOID_INSTANCES = (
+    ("K1 g1", "g1", False, "g1"), ("K1 h1", "h1", False, "h1"),
+    ("K1 h1_2", "h1_2", False, "h1_2"), ("K3 g1", "g1", True, "g1_terrain"),
+    ("K3 h1_2", "h1_2", True, "h1_2"),
+)
 # the rollout fields dp_parity compares between 1 rank and 2 ranks
 DATA_FIELDS = ("obs", "actions", "advantages", "returns")
 # ... and those that must be bit-identical without pushes (the advantages
@@ -190,12 +236,13 @@ PHI_EDGE = 1e-6          # |phi| below which a contact flip excuses an env
 MAX_EXCUSED_SHARE = 1e-3  # of the envs, in one comparison
 # The largest state error against the plain version of K1 (compare), K3
 # (compare_terrain) and K2 (compare_cs) over the envs not excused at a
-# contact edge, as every earlier form of the kernels gave it on these
+# contact edge, as every earlier form of the kernels gives it on these
 # inputs (PERF.md §6). A schedule that keeps every output's sequence of
 # roundings gives these to the last bit; any other value means the bits
-# moved.
-PARENT_MAX_ABS_ERR = {"K1": 4.57763671875e-05, "K3": 5.316734313964844e-05,
-                      "K2": 4.7206878662109375e-05}
+# moved. They are 0: the plain version divides by dt as the kernel does
+# (``soa._div``); until it did, torch's product with a float32 reciprocal
+# left 4.6e-5 to 5.3e-5 here, with the kernel's bits the same.
+PARENT_MAX_ABS_ERR = {"K1": 0.0, "K3": 0.0, "K2": 0.0}
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -311,6 +358,20 @@ def flat_outputs(state, aux):
     out = {k: getattr(state, k) for k in ("base_pos", "base_quat", "joint_q", "v")}
     out.update(aux)
     return out
+
+
+def check_rows(rows, torch, runner, what):
+    """Every metric of every iteration finite, lr in [1e-5, 1e-2] and the
+    env state finite after ``what``."""
+    for row in rows:
+        for k, v in row.items():
+            vals = v.values() if isinstance(v, dict) else [v]
+            check(all(math.isfinite(float(u)) for u in vals),
+                  f"non-finite {k} at iteration {row['it']}: {v}")
+        check(LR_MIN <= row["lr"] <= LR_MAX, f"lr {row['lr']} outside [1e-5, 1e-2]")
+    for k in ("base_pos", "base_quat", "joint_q", "v"):
+        check(bool(torch.isfinite(getattr(runner._env_state.phys, k)).all()),
+              f"non-finite {k} after {what}")
 
 
 def check_partial_launch(torch, run, x, extra, whole, name):
@@ -885,15 +946,7 @@ def handstand_phases(torch, dev, libs, build_s):
     check(k2_launches == steps * FINETUNE_ITERS,
           f"K2 launched {k2_launches} times in {FINETUNE_ITERS} iterations of {steps} steps")
     check(others == (0, 0), f"K1, K3 launched {others} times in the fine-tune")
-    for row in rows:
-        for k, v in row.items():
-            vals = v.values() if isinstance(v, dict) else [v]
-            check(all(math.isfinite(float(u)) for u in vals),
-                  f"non-finite {k} at iteration {row['it']}: {v}")
-        check(LR_MIN <= row["lr"] <= LR_MAX, f"lr {row['lr']} outside [1e-5, 1e-2]")
-    for k in ("base_pos", "base_quat", "joint_q", "v"):
-        check(bool(torch.isfinite(getattr(runner._env_state.phys, k)).all()),
-              f"non-finite {k} after the fine-tune")
+    check_rows(rows, torch, runner, "the fine-tune")
     ckpt = os.path.join(tmp.name, f"model_{runner.current_learning_iteration}.pt")
     fresh = OnPolicyRunner(env, train_cfg, None)
     fresh.load(ckpt)
@@ -1568,6 +1621,256 @@ def dp_phases(torch, dev, t_start):
     }
 
 
+# ---------------------------------------------------------------------------
+# 21-24. the humanoids (g1, h1, h1_2) with their LSTM policies (K1, K3)
+# ---------------------------------------------------------------------------
+
+
+def task_model(task, dev):
+    """The SoAModel of ``task``'s robot."""
+    from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+    from unitree_rl_gym_tpu_torch.physics import backend as pb
+
+    cfg, _ = task_registry.get_cfgs(task)
+    cfg.env.num_envs = 1
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+    return pb.soa_model_for(env.robot.dyn)
+
+
+def humanoid_env(task, terrain, dev):
+    """``task`` at N_ENVS envs: play.py's eval env on the plane, the
+    training cfg on bench.py's heightfield with the terrain curriculum."""
+    from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+    from unitree_rl_gym_tpu_torch.scripts import play
+    from unitree_rl_gym_tpu_torch.utils import helpers
+
+    if not terrain:
+        return play.make_play_env(helpers.get_args(
+            [f"--task={task}", f"--num_envs={N_ENVS}", "--device=cuda"]), dev)
+    cfg, _ = task_registry.get_cfgs(task)
+    cfg.env.num_envs = N_ENVS
+    cfg.terrain.mesh_type = "heightfield"
+    cfg.terrain.curriculum = True
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+    return env
+
+
+def humanoid_phases(torch, dev, n_sm):
+    """Phases 21-24 on the humanoids; returns their entries of the kernels
+    line (one per instance: K1 at g1's, h1's and h1_2's sizes, K3 at g1's
+    and h1_2's)."""
+    import tempfile
+
+    from unitree_rl_gym_tpu_torch import resource
+    from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+    from unitree_rl_gym_tpu_torch.models.networks import load_flat_policy
+    from unitree_rl_gym_tpu_torch.physics import backend as pb
+    from unitree_rl_gym_tpu_torch.physics import cuda_step
+    from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
+    from unitree_rl_gym_tpu_torch.scripts import play
+
+    entries, play_envs = {}, {}
+    # ---- 21-22. each instance against the plain version, then timed ----
+    for name, task, terrain, artifact in HUMANOID_INSTANCES:
+        t0 = time.time()
+        env = humanoid_env(task, terrain, dev)
+        if not terrain:
+            play_envs[task] = env
+        cfg = env.cfg
+        m = pb.soa_model_for(env.robot.dyn)
+        step_args = (env.robot.dyn, env.cparams, env.pd, cfg.sim.dt,
+                     cfg.control.decimation)
+        policy = load_flat_policy(resource(f"resources/pre_train/{artifact}"), dev)
+        check(policy.is_recurrent, f"{artifact} is not an LSTM policy")
+        clip = cfg.normalization.clip_actions
+
+        def inputs(state, obs, carry):
+            with torch.no_grad():
+                actions = torch.clamp(policy.act(obs, carry)[0], -clip, clip)
+            x = (state.phys, env._compute_target(actions), state.friction,
+                 state.mass_scale, env.m_eff_n, env.m_eff_t)
+            return x + ((state.gh,) if terrain else ())
+
+        state, obs = env.reset_all()
+        carry = policy.initial_carry(N_ENVS)
+        cases = {"reset": inputs(state, obs, carry)}
+        walk = HUMANOID_TERRAIN_STEPS if terrain else HUMANOID_WALK_STEPS
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        with torch.no_grad():
+            for _ in range(walk):
+                actions, carry = policy.act(obs, carry)
+                state, obs, *_ = env.step(state, actions)
+        torch.cuda.synchronize()
+        walk_launches = launch_counts()
+        cases["walk"] = inputs(state, obs, carry)
+        max_state_err = max_aux_err = 0.0
+        excused, excused_errs, per_output = {}, {}, {}
+        for case, x in cases.items():
+            ref_s, ref_aux = pb.control_step_soa(
+                *step_args, *x[:6], gh=x[6] if terrain else None, want_phi=True)
+            got_s, got_aux = pb.control_step(*step_args, *x)
+            torch.cuda.synchronize()
+            s_err, a_err, excused[case], per_output[case], e_errs = compare(
+                flat_outputs(ref_s, ref_aux), flat_outputs(got_s, got_aux),
+                ref_aux["min_abs_phi"], torch, name=name)
+            max_state_err = max(max_state_err, s_err)
+            max_aux_err = max(max_aux_err, a_err)
+            excused_errs[case] = {"state": e_errs[0], "aux_normalised": e_errs[1]}
+        partial = check_partial_launch(
+            torch, lambda xx, ex: flat_outputs(*pb.control_step(*step_args, *xx, **ex)),
+            x[:6], {"gh": x[6]} if terrain else {}, flat_outputs(got_s, got_aux), name)
+        emit({"phase": "compare_humanoid", "instance": name, "n_envs": N_ENVS,
+              "artifact": artifact, "walk_steps": walk,
+              "sizes": {"nb": m.nb, "nv": m.nv, "ncp": m.ncp, "nrb": m.nrb,
+                        "decimation": cfg.control.decimation},
+              "max_abs_err_state": max_state_err,
+              "new_parent_max_abs_err_entry": {name: max_state_err},
+              "short_launch_rows_bit_identical": partial,
+              "max_err_aux_normalised": max_aux_err,
+              "excused_contact_edge_envs": excused,
+              "max_excused_envs": int(MAX_EXCUSED_SHARE * N_ENVS),
+              "max_errors_of_excused_envs": excused_errs,
+              "max_errors_by_output": per_output, "seconds": time.time() - t0})
+
+        t0 = time.time()
+        x = cases["walk"]
+        ms = cuda_ms(torch, lambda: pb.control_step(*step_args, *x), TIME_LAUNCHES, 3)
+        plain_ms = cuda_ms(torch, lambda: pb.control_step_soa(
+            *step_args, *x[:6], gh=x[6] if terrain else None), TIME_PLAIN, 1)
+        bound_ms, t_ops, t_bytes, flops, nbytes = bound(
+            cuda_step, m, cfg.control.decimation, env.cparams.iterations, terrain)
+        lib = "control_step"
+        timing = {"phase": "time_humanoid", "instance": name, "ms": ms,
+                  "plain_ms": plain_ms, "flops_per_env": flops,
+                  "bytes_per_env": nbytes, "bound_ms": bound_ms, "ops_ms": t_ops,
+                  "bytes_ms": t_bytes,
+                  "ptxas": instance_ptxas(cuda_step, m, lib, name.split()[0]),
+                  "scratch_bytes_per_env": cuda_step.scratch_bytes(m, lib, terrain),
+                  "resident_blocks_per_sm": cuda_step.resident_envs(m, lib, terrain)[0]}
+        if name == "K1 g1":
+            # one env per SM: one env's chain of dependent phases
+            x_sm = first_envs(x, n_sm)
+            timing["ms_one_env_per_sm"] = cuda_ms(
+                torch, lambda: pb.control_step(*step_args, *x_sm), TIME_LAUNCHES, 3)
+            timing["envs_one_per_sm"] = n_sm
+        emit(dict(timing, seconds=time.time() - t0))
+        entries[name] = {
+            "name": "control_step_" + ("terrain" if terrain else "flat") + f" ({task} sizes)",
+            "route": "cuda",
+            "source": "unitree_rl_gym_tpu_torch/csrc/control_step.cu",
+            "replaces": "unitree_rl_gym_tpu/physics/pallas_step.py:186",
+            "replaces_function": "pallas_step.control_step_pallas (_kernel, "
+                                 f"has_gh={terrain}, has_cs=False)",
+            "launches": walk_launches["k3" if terrain else "k1"],
+            "launches_path": f"{walk} LSTM policy steps through LeggedEnv.step "
+                             f"({task}{'_terrain' if terrain else ''})",
+            "max_abs_err": max_state_err,
+            "max_err": max_state_err,
+            "max_err_aux_normalised": max_aux_err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+        }
+        del env, cases, x, state, obs, carry
+        torch.cuda.empty_cache()
+
+    # ---- 23. play: the pretrained LSTM policies through play.rollout ----
+    for task in ("h1_2", "g1", "h1"):
+        t0 = time.time()
+        env = play_envs[task]
+        policy = load_flat_policy(resource(f"resources/pre_train/{task}"), dev)
+        check(all(p.is_cuda for p in policy.parameters()), "the actor is not on the card")
+        state, obs = env.reset_all()
+        check(obs.is_cuda, "observations are not on the card")
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t_loop = time.time()
+        state, obs, stats = play.rollout(env, policy, state, obs, PLAY_HUMANOID_STEPS,
+                                         settle=PLAY_HUMANOID_STEPS // 3)
+        torch.cuda.synchronize()
+        loop_s = time.time() - t_loop
+        counts = launch_counts()
+        check(counts == {"k4": 0, "k1": PLAY_HUMANOID_STEPS, "k3": 0, "k2": 0},
+              f"{task} play: launches {counts} in {PLAY_HUMANOID_STEPS} steps")
+        check(tuple(obs.shape) == (N_ENVS, env.num_obs), f"obs shape {tuple(obs.shape)}")
+        for k in ("base_pos", "base_quat", "joint_q", "v"):
+            check(bool(torch.isfinite(getattr(state.phys, k)).all()), f"non-finite {k}")
+        rate = stats["falls"] / N_ENVS
+        if task in PLAY_FALL_BAR:
+            check(rate <= PLAY_FALL_BAR[task],
+                  f"{task}: {stats['falls']} non-timeout terminations after settling "
+                  f"({rate:.2%}), above the bar {PLAY_FALL_BAR[task]:.2%}")
+        entries[f"K1 {task}"]["launches"] += counts["k1"]
+        entries[f"K1 {task}"]["launches_path"] += (
+            f" + {PLAY_HUMANOID_STEPS} steps of scripts/play.py's rollout")
+        emit({"phase": "play_humanoid", "task": task, "n_envs": N_ENVS,
+              "steps": PLAY_HUMANOID_STEPS, "k1_launches": counts["k1"],
+              "env_steps_per_s": N_ENVS * PLAY_HUMANOID_STEPS / loop_s,
+              "step_ms": loop_s / PLAY_HUMANOID_STEPS * 1e3,
+              "fall_rate": rate, "fall_bar": PLAY_FALL_BAR.get(task, "not gated"),
+              **{k: stats[k] for k in ("abs_vx_tracking_err", "abs_vy_tracking_err",
+                                       "abs_yaw_rate_err", "base_height", "falls",
+                                       "episodes")},
+              "seconds": time.time() - t0})
+        del env, state, obs
+        play_envs.pop(task)
+    torch.cuda.empty_cache()
+
+    # ---- 24. g1 training: OnPolicyRunner.learn with the LSTM and recurrent PPO ----
+    t0 = time.time()
+    env_cfg, train_cfg = task_registry.get_cfgs("g1")
+    env_cfg.env.num_envs = N_ENVS
+    env, _ = task_registry.make_env("g1", env_cfg=env_cfg, device=dev)
+    tmp = tempfile.TemporaryDirectory()
+    runner = OnPolicyRunner(env, train_cfg, tmp.name)
+    check(runner.net.is_recurrent, "g1 trains without its LSTM")
+    runner.learn(1, init_at_random_ep_len=True)      # warm-up, not counted
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    rows = runner.learn(G1_TRAIN_ITERS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps = train_cfg.runner.num_steps_per_env
+    check(counts == {"k4": 0, "k1": steps * G1_TRAIN_ITERS, "k3": 0, "k2": 0},
+          f"g1 training: launches {counts} in {G1_TRAIN_ITERS} iterations of {steps} steps")
+    check_rows(rows, torch, runner, "g1 training")
+    check(tuple(runner._carry.shape) == (2, 1, 2, N_ENVS, 64)
+          and bool(torch.isfinite(runner._carry).all()), "the LSTM carry")
+    ckpt = os.path.join(tmp.name, f"model_{runner.current_learning_iteration}.pt")
+    fresh = OnPolicyRunner(env, train_cfg, None)
+    fresh.load(ckpt)
+    sd, fsd = runner.net.state_dict(), fresh.net.state_dict()
+    check(any("memory_a" in k for k in sd) and sd.keys() == fsd.keys()
+          and all(torch.equal(sd[k], fsd[k]) for k in sd),
+          f"parameters loaded from {os.path.basename(ckpt)} differ")
+    check(fresh.alg.lr == runner.alg.lr, "lr not restored from the checkpoint")
+    it_s = sorted(r["iteration_s"] for r in rows)[len(rows) // 2]
+    roll_s = sorted(r["rollout_s"] for r in rows)[len(rows) // 2]
+    upd_s = sorted(r["update_s"] for r in rows)[len(rows) // 2]
+    entries["K1 g1"]["launches"] += counts["k1"]
+    entries["K1 g1"]["launches_path"] += (
+        f" + {G1_TRAIN_ITERS} iterations of OnPolicyRunner.learn (g1)")
+    emit({"phase": "train_g1", "config": "g1 flat, ActorCriticRecurrent (LSTM 64)",
+          "n_envs": N_ENVS, "iterations": G1_TRAIN_ITERS, "k1_launches": counts["k1"],
+          "median_iteration_ms": it_s * 1e3,
+          "train_env_steps_per_s": N_ENVS * steps / it_s,
+          "median_rollout_ms": roll_s * 1e3, "median_update_ms": upd_s * 1e3,
+          "env_steps_per_s_by_iteration": [r["fps"] for r in rows],
+          "mean_step_reward": [r["mean_step_reward"] for r in rows],
+          "value_loss": [r["value_loss"] for r in rows],
+          "kl": [r["kl"] for r in rows], "lr": [r["lr"] for r in rows],
+          "checkpoint_round_trip": True, "seconds": time.time() - t0})
+    t0 = time.time()
+    emit(dict(profile_train(runner, torch, it_s * 1e3, roll_s * 1e3, upd_s * 1e3,
+                            kernel="k1_ms", rollout_range=None),
+              phase="profile_train_g1", seconds=time.time() - t0))
+    tmp.cleanup()
+    return [entries[name] for name, *_ in HUMANOID_INSTANCES]
+
+
 def profile_step(env, policy, play, torch, step_ms):
     """Device time per rollout step by kernel group, from torch.profiler
     over PROFILE_STEPS steps; the idle share is measured against the
@@ -1641,8 +1944,10 @@ def main():
     env = play.make_play_env(args, dev)
     m = pb.soa_model_for(env.robot.dyn)
     m_hs = handstand_model(dev)
+    m_hum = {task: task_model(task, dev) for task in ("g1", "h1", "h1_2")}
     t_build = time.time()
-    libs = cuda_step.build_all([m, m_hs])
+    libs = cuda_step.build_all([m, m_hs], only=[(mm, "control_step")
+                                                for mm in m_hum.values()])
     build_s = time.time() - t_build
     lib_path = libs[("control_step", cuda_step.size_defines(m))]
     ptxas = ptxas_by_kernel(cuda_step.BUILD_LOGS.get(lib_path, ""))
@@ -1658,12 +1963,17 @@ def main():
             "K2 flat": (m_hs, "control_step_cs", False),
             "K2 terrain": (m, "control_step_cs", True),
             "K1 at the handstand's sizes": (m_hs, "control_step", False)}
+    runs.update({name: (m_hum[task], "control_step", terrain)
+                 for name, task, terrain, _ in HUMANOID_INSTANCES})
     scratch = {k: cuda_step.scratch_bytes(mm, lib, terr) for k, (mm, lib, terr) in runs.items()}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     resident = {k: cuda_step.resident_envs(mm, lib, terr) for k, (mm, lib, terr) in runs.items()}
     emit({"phase": "build", "library": lib_path.split("unitree_rl_gym_tpu_torch/")[-1],
           "build_seconds": build_s, "libraries_built_together": len(libs),
           "ptxas": ptxas, "spill_bytes_stores_loads": spills,
+          "ptxas_humanoid": {name: instance_ptxas(cuda_step, m_hum[task], "control_step",
+                                                  name.split()[0])
+                             for name, task, _, _ in HUMANOID_INSTANCES},
           "lanes_per_env": cuda_step.lanes_per_env(m),
           "scratch_bytes_per_env": scratch,
           "resident_blocks_per_sm": {k: b for k, (b, _) in resident.items()},
@@ -1787,6 +2097,9 @@ def main():
     # ---- 17-20. env data parallelism over 2 ranks (K4) ----
     k4_entry = dp_phases(torch, dev, t_start)
 
+    # ---- 21-24. the humanoids with their LSTM policies (K1, K3) ----
+    humanoid_entries = humanoid_phases(torch, dev, n_sm)
+
     emit({"kernels": [{
         "name": "control_step_flat",
         "route": "cuda",
@@ -1803,7 +2116,7 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-    }, k3_entry, k2_entry, k4_entry]})
+    }, k3_entry, k2_entry, k4_entry, *humanoid_entries]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -41,6 +41,9 @@ from unitree_rl_gym_tpu_torch.physics import engine as eng
 from unitree_rl_gym_tpu_torch.physics import soa
 
 N = 8
+# the humanoids' sizes (SoAModel nb, nv, ncp, nrb) and decimation
+HUMANOIDS = {"g1": (13, 18, 80, 31, 4), "h1": (11, 16, 72, 22, 4),
+             "h1_2": (13, 18, 20, 56, 8)}
 STATE_FIELDS = ("base_pos", "base_quat", "joint_q", "v")
 AUX_KEYS = ("torques", "cf_rb", "rb_pos_w", "rb_vel_w")
 # outputs held to the state's tolerance (p_xy: K3's end-of-step point xy)
@@ -241,15 +244,16 @@ def test_model_tables_match_struct(env, host_lib):
     assert len(tables) == host_lib.utrl_model_bytes()
 
 
-@pytest.mark.parametrize("task", ["go2", "go2_handstand"])
-def test_tree_levels_follow_parent(env, hs_env, task):
+@pytest.mark.parametrize("task", ["go2", "go2_handstand"] + list(HUMANOIDS))
+def test_tree_levels_follow_parent(env, hs_env, hum_envs, task):
     """Every body's parent sits on the level above it, in the depths, in the
     depth masks and in the bodies listed by depth; each body's children are
     the bodies whose parent it is; the body chains hold every body once,
     the base alone at level 0, each chain's bodies each the parent of the
     next, and each head's parent on a chain of the level above; and the
-    packed tables end with the schedule's fields."""
-    e = env if task == "go2" else hs_env
+    packed tables end with the schedule's fields. The humanoids' trees are
+    the base and two serial legs of 5 (h1) or 6 bodies."""
+    e = {"go2": env, "go2_handstand": hs_env, **hum_envs}[task]
     m, tables = env_tables(e)
     depth = cuda_step.tree_levels(m)
     assert depth[0] == 0 and m.parent[0] == -1
@@ -289,8 +293,8 @@ def test_tree_levels_follow_parent(env, hs_env, task):
         np.frombuffer(tables, np.uint32)[-tail.size:], tail)
 
 
-@pytest.mark.parametrize("task", ["go2", "go2_handstand"])
-def test_chol_levels_cover_the_plain_factor(env, hs_env, task):
+@pytest.mark.parametrize("task", ["go2", "go2_handstand"] + list(HUMANOIDS))
+def test_chol_levels_cover_the_plain_factor(env, hs_env, hum_envs, task):
     """Every entry the plain version's factor keeps (``soa.chol_factor_s``
     emits no structural zero) is in the kernel's pattern, and for joint
     rows i > j, column j comes before i in the factor's and the forward
@@ -300,7 +304,7 @@ def test_chol_levels_cover_the_plain_factor(env, hs_env, task):
     kernel's chain-by-chain sums hold every term the plain version's do,
     each one final when it is read. Every joint's column holds every base
     row, which the back solve reads first, before the joint rows' terms."""
-    e = env if task == "go2" else hs_env
+    e = {"go2": env, "go2_handstand": hs_env, **hum_envs}[task]
     m = pb.soa_model_for(e.robot.dyn)
     x = make_inputs(e.default_dof_pos.numpy(), N, True, seed=3)
     t = {k: list(torch.from_numpy(x[k]).T) for k in STATE_FIELDS}
@@ -342,9 +346,16 @@ def test_scratch_fits_shared_memory(host_lib, hs_host_lib):
     sizes = [host_lib.utrl_scratch_bytes(0), host_lib.utrl_scratch_bytes(1),
              hs_host_lib.utrl_scratch_bytes(0)]
     assert sizes[0] < sizes[1] and sizes[0] < sizes[2]
-    lanes = host_lib.utrl_lanes_per_env()
-    per_block = host_lib.utrl_envs_per_block()
-    asked = host_lib.utrl_blocks_per_sm_asked()
+    check_scratch_fits(host_lib, sizes)
+
+
+def check_scratch_fits(lib, sizes):
+    """The launch's shape in the build ``lib``, and each env scratch of
+    ``sizes`` (bytes) within an H100 SM's shared memory at the blocks the
+    launch asks for, holding 4096 envs on 132 SMs."""
+    lanes = lib.utrl_lanes_per_env()
+    per_block = lib.utrl_envs_per_block()
+    asked = lib.utrl_blocks_per_sm_asked()
     assert lanes in (8, 16) and per_block % (32 // lanes) == 0, (lanes, per_block)
     assert asked * per_block * 132 >= 4096, (asked, per_block)
     for b in sizes:
@@ -633,3 +644,158 @@ def test_partial_warp_matches_plain(env, terrain_env, hs_env, host_lib, rev_host
         np.testing.assert_array_equal(got[k], first_rows(whole, n - 1)[k], err_msg=k)
         np.testing.assert_array_equal(got[k], rev[k], err_msg=k)
     assert_close(plain_step(e, x), got, list(got))
+
+
+# ---------------------------------------------------------------------------
+# the humanoids' sizes: K1 at g1's, h1's and h1_2's, K3 at g1's
+# ---------------------------------------------------------------------------
+
+
+def humanoid_env(task, terrain=False, n=N):
+    """A humanoid env on the CPU (g1 on the tiny heightfield when
+    ``terrain``)."""
+    from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+
+    cfg, _ = task_registry.get_cfgs(task)
+    cfg.env.num_envs = n
+    if terrain:
+        tiny_terrain(cfg)
+    return task_registry.get_task_class(task)(cfg, device="cpu")
+
+
+def lowest_point_z(env):
+    """The lowest contact point's height above its base origin at the
+    default pose (its radius taken off)."""
+    from unitree_rl_gym_tpu_torch.physics import contact as ct
+    from unitree_rl_gym_tpu_torch.physics import dynamics as dyn
+
+    m = env.robot.dyn
+    R_w, p_w, _, v_b = dyn.fk(m, torch.zeros(3), env.base_init_quat,
+                              env.default_dof_pos,
+                              torch.zeros(6 + env.robot.num_dof))
+    x, _ = ct.point_kinematics(m, R_w, p_w, v_b)
+    return float((x[:, 2] - m.cp_radius).min())
+
+
+def humanoid_inputs(env, n, seed):
+    """``make_inputs`` at the humanoid's default pose with its lowest point
+    4 mm into the ground (on terrain: over the sub-terrain origins, with
+    ``gh`` the heights under the default-pose points)."""
+    x = make_inputs(env.default_dof_pos.numpy(), n, True, seed)
+    z = -lowest_point_z(env) - 0.004
+    if env.terrain is None:
+        x["base_pos"][:, 2] = z
+        return x
+    rng = np.random.default_rng(seed)
+    origins = env.terrain_origins.reshape(-1, 3).numpy()
+    base = origins[np.arange(n) % origins.shape[0]]
+    base = base + np.stack([rng.uniform(-0.4, 0.4, n), rng.uniform(-0.4, 0.4, n),
+                            np.full(n, z)], 1)
+    x["base_pos"] = base.astype(np.float32)
+    x["gh"] = env._reset_gh(torch.from_numpy(x["base_pos"])).numpy()
+    return x
+
+
+@pytest.fixture(scope="module")
+def hum_envs():
+    return {task: humanoid_env(task) for task in HUMANOIDS}
+
+
+@pytest.fixture(scope="module")
+def hum_host_libs(hum_envs, tmp_path_factory):
+    """{(task, reversed): host build at the task's sizes}, the six g++
+    builds run side by side."""
+    import concurrent.futures
+
+    jobs = [(task, rev) for task in HUMANOIDS for rev in (False, True)]
+
+    def one(job):
+        task, rev = job
+        return build_host_lib(
+            pb.soa_model_for(hum_envs[task].robot.dyn),
+            tmp_path_factory.mktemp(f"hum_{task}_{int(rev)}"),
+            ("-DUTRL_HOST_LANES_REVERSED",) if rev else ())
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        return dict(zip(jobs, ex.map(one, jobs)))
+
+
+HUM_CASES = ["K1 g1", "K1 h1", "K1 h1_2", "K3 g1"]
+
+
+@pytest.fixture(scope="module")
+def hum_cases(hum_envs):
+    """{case: (env, its task)}: the flat envs and g1 on the tiny
+    heightfield."""
+    out = {f"K1 {t}": (e, t) for t, e in hum_envs.items()}
+    out["K3 g1"] = (humanoid_env("g1", terrain=True), "g1")
+    return out
+
+
+@pytest.mark.parametrize("task", list(HUMANOIDS))
+def test_humanoid_sizes_and_scratch(hum_envs, hum_host_libs, task):
+    """The humanoid builds' sizes, and their scratch (flat and terrain)
+    fits the SM's shared memory as go2's does
+    (test_scratch_fits_shared_memory)."""
+    m = pb.soa_model_for(hum_envs[task].robot.dyn)
+    assert (m.nb, m.nv, m.ncp, m.nrb,
+            hum_envs[task].cfg.control.decimation) == HUMANOIDS[task]
+    lib = hum_host_libs[(task, False)]
+    check_scratch_fits(lib, [lib.utrl_scratch_bytes(0), lib.utrl_scratch_bytes(1)])
+
+
+@pytest.fixture(scope="module")
+def hum_host_vs_plain(hum_cases, hum_host_libs):
+    """{case: (plain outputs, host-body outputs)} at N=8, grounded."""
+    out = {}
+    for case, (e, task) in hum_cases.items():
+        x = humanoid_inputs(e, N, seed=4)
+        out[case] = (plain_step(e, x),
+                     host_step(hum_host_libs[(task, False)], *env_tables(e), x))
+    return out
+
+
+@pytest.mark.parametrize("case", HUM_CASES)
+def test_humanoid_host_body_matches_plain(hum_host_vs_plain, case):
+    ref, got = hum_host_vs_plain[case]
+    assert_close(ref, got, list(ref))
+    assert float(np.abs(got["cf_rb"]).max()) > 1.0
+
+
+@pytest.mark.parametrize("case", HUM_CASES)
+def test_humanoid_partial_warp_and_lane_order(hum_cases, hum_host_libs, case):
+    """n_envs one short of two whole warps: every real env gets the bits of
+    its row of the launch over two whole warps, the same bits with every
+    phase's lanes and groups reversed (h1_2's 9 bodies without a point and
+    56 report bodies over 13 dyn bodies included), and the plain version's
+    outputs at the physics tolerance."""
+    e, task = hum_cases[case]
+    lib, rev = hum_host_libs[(task, False)], hum_host_libs[(task, True)]
+    n = 2 * (32 // lib.utrl_lanes_per_env())
+    x = humanoid_inputs(e, n, seed=11)
+    whole = host_step(lib, *env_tables(e), x)
+    rev_whole = host_step(rev, *env_tables(e), x)
+    x = first_rows(x, n - 1)
+    got = host_step(lib, *env_tables(e), x)
+    for k in got:
+        np.testing.assert_array_equal(whole[k], rev_whole[k], err_msg=k)
+        np.testing.assert_array_equal(got[k], first_rows(whole, n - 1)[k], err_msg=k)
+    assert_close(plain_step(e, x), got, list(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HUM_CASES + ["K3 h1_2"])
+def test_cuda_humanoid_kernel_matches_plain(hum_envs, cuda_device, case):
+    """K1 at g1's, h1's and h1_2's sizes and K3 at g1's and h1_2's on the
+    card against the plain version at N=64, grounded."""
+    kernel, task = case.split()
+    e = humanoid_env(task, terrain=kernel == "K3", n=64)
+    x = humanoid_inputs(e, 64, seed=5)
+    ref = plain_step(e, x, cuda_device)
+    counter = "LAUNCHES_TERRAIN" if kernel == "K3" else "LAUNCHES"
+    before = getattr(cuda_step, counter)
+    got = env_step(e, x, cuda_device)
+    torch.cuda.synchronize()
+    assert getattr(cuda_step, counter) == before + 1
+    assert_close(ref, got, list(ref))
+    assert float(np.abs(got["cf_rb"]).max()) > 1.0

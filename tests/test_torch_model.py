@@ -1,9 +1,11 @@
 """Port parity for the model build of go2 (the slice's robot, configured by
-the port's own ``envs/go2.py``): every ``DynModel`` and ``SoAModel`` field
-equals the JAX package's build, and so does the PGS preconditioner
-``m_eff_n``/``m_eff_t``. Integers exactly; floats within 1e-6 (absolute and
-relative: the preconditioner is a float32 Cholesky-inverse chain computed
-in another operation order)."""
+the port's own ``envs/go2.py``) and of the humanoids g1, h1 and h1_2 (their
+``envs/{g1,h1,h1_2}.py``: the cached ``collision_points.json`` of g1's and
+h1_2's mesh collisions, h1's URDF shapes): every ``DynModel`` and
+``SoAModel`` field equals the JAX package's build, and so does the PGS
+preconditioner ``m_eff_n``/``m_eff_t``. Integers exactly; floats within
+1e-6 (absolute and relative: the preconditioner is a float32
+Cholesky-inverse chain computed in another operation order)."""
 
 import dataclasses
 
@@ -21,6 +23,7 @@ from unitree_rl_gym_tpu.physics import dynamics as jdyn
 from unitree_rl_gym_tpu.physics import soa as jsoa
 from unitree_rl_gym_tpu_torch import resource
 from unitree_rl_gym_tpu_torch.envs.go2 import go2_rough_cfg
+from unitree_rl_gym_tpu_torch.envs.registry import task_registry as port_registry
 from unitree_rl_gym_tpu_torch.models.robot import build_robot
 from unitree_rl_gym_tpu_torch.physics import backend as pb
 from unitree_rl_gym_tpu_torch.physics import contact as ct
@@ -47,9 +50,10 @@ def cfgs():
     return task_registry.get_cfgs("go2")[0], go2_rough_cfg()
 
 
-@pytest.fixture(scope="module")
-def builds(cfgs):
-    jcfg, tcfg = cfgs
+def _builds(jcfg, tcfg):
+    """(JAX robot, port robot) of one task's cfgs."""
+    assert (tcfg.asset.file, tcfg.asset.armature) == (jcfg.asset.file,
+                                                      jcfg.asset.armature)
     kw = dict(armature=jcfg.asset.armature, gravity=tuple(jcfg.sim.gravity))
     jr = jax_build_robot(jax_resource(jcfg.asset.file),
                          contact_bodies=_contact_bodies(jcfg), **kw)
@@ -59,8 +63,12 @@ def builds(cfgs):
 
 
 @pytest.fixture(scope="module")
-def effective_masses(cfgs, builds):
-    """(JAX, port) preconditioners of go2 at its nominal pose."""
+def builds(cfgs):
+    return _builds(*cfgs)
+
+
+def _effective_masses(cfgs, builds):
+    """(JAX, port) preconditioners at the nominal pose."""
     (jcfg, tcfg), (jr, tr) = cfgs, builds
     jm = _effective_mass(
         jct, jr.dyn, jcfg, jr.default_dof_pos(jcfg.init_state.default_joint_angles),
@@ -69,6 +77,11 @@ def effective_masses(cfgs, builds):
         ct, tr.dyn, tcfg, tr.default_dof_pos(tcfg.init_state.default_joint_angles),
         lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32))
     return jm, tm
+
+
+@pytest.fixture(scope="module")
+def effective_masses(cfgs, builds):
+    return _effective_masses(cfgs, builds)
 
 
 def _flat(x):
@@ -122,3 +135,45 @@ def test_robot_metadata(builds):
     assert tr.body_names == jr.body_names
     for name in ("dof_lower", "dof_upper", "dof_effort", "dof_velocity"):
         np.testing.assert_array_equal(getattr(tr, name), getattr(jr, name))
+
+
+# ---------------------------------------------------------------------------
+# the humanoids: g1, h1, h1_2
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=["g1", "h1", "h1_2"])
+def humanoid(request):
+    """(cfgs, builds, effective masses) of one humanoid, JAX and port."""
+    cfgs = (task_registry.get_cfgs(request.param)[0],
+            port_registry.get_cfgs(request.param)[0])
+    b = _builds(*cfgs)
+    return cfgs, b, _effective_masses(cfgs, b)
+
+
+def test_humanoid_dyn_model(humanoid):
+    _, (jr, tr), _ = humanoid
+    _same_fields(jdyn.DynModel, jr.dyn, tr.dyn)
+
+
+def test_humanoid_soa_model(humanoid):
+    _, (jr, tr), _ = humanoid
+    _same_fields(jsoa.SoAModel, jpb.soa_model_for(jr.dyn),
+                 pb.soa_model_for(tr.dyn))
+
+
+def test_humanoid_effective_mass(humanoid):
+    *_, (jm, tm) = humanoid
+    for which, name in enumerate(("m_eff_n", "m_eff_t")):
+        np.testing.assert_allclose(tm[which].numpy(), np.asarray(jm[which]),
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+def test_humanoid_robot_metadata(humanoid):
+    (jcfg, tcfg), (jr, tr), _ = humanoid
+    test_robot_metadata((jr, tr))
+    for a, b in ((jr.default_dof_pos(jcfg.init_state.default_joint_angles),
+                  tr.default_dof_pos(tcfg.init_state.default_joint_angles)),
+                 (jr.pd_gains(jcfg.control.stiffness, jcfg.control.damping),
+                  tr.pd_gains(tcfg.control.stiffness, tcfg.control.damping))):
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))

@@ -73,6 +73,8 @@ def test_live_jax_params_round_trip(obs):
 
 
 def test_recurrent_policy_raises(flat):
+    """MLP arrays under ``is_recurrent=True`` name the LSTM weights they
+    lack (the LSTM artifacts load in test_torch_policy_lstm.py)."""
     arrays, meta = flat
-    with pytest.raises(NotImplementedError, match="LSTM"):
+    with pytest.raises(ValueError, match="memory_a"):
         actor_critic_from_flat(arrays, dict(meta, is_recurrent=True))

@@ -127,8 +127,9 @@ def _batch(params, seed, jppo):
     )
 
 
-# the fields the JAX ``PPO._loss`` reads off its minibatch
-JaxBatch = collections.namedtuple("JaxBatch", Batch._fields)
+# the fields the JAX ``PPO._loss`` reads off its minibatch (the port's
+# Batch adds a recurrent net's dones and start carry after them)
+JaxBatch = collections.namedtuple("JaxBatch", Batch._fields[:Batch._fields.index("dones")])
 
 
 def _flat_tree(tree):

@@ -209,7 +209,8 @@ def updates(request):
     with torch.no_grad():
         state, obs = env.reset_all(init_at_random_ep_len=True)
         cobs = state.priv_obs if state.priv_obs is not None else obs
-        _, obs, cobs, tr, rewards, dones, _ = alg.rollout(env, state, obs, cobs)
+        _, obs, cobs, _, tr, rewards, dones, _ = alg.rollout(env, state, obs,
+                                                             cobs)
         _, _, last_value = alg.net(obs, None if alg.share_critic_obs else cobs)
     adv, ret = alg.compute_gae(tr.values, rewards, dones, last_value)
     key = jax.random.PRNGKey(7)

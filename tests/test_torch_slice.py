@@ -56,16 +56,20 @@ def test_cuda_without_gpu_raises():
 
 @pytest.mark.parametrize("task", ["h1", "h1_2", "g1", "go2_handstand"])
 def test_unported_tasks_raise(task):
-    if task == "go2_handstand":
-        # the handstand is ported now: its cfgs and class are registered
-        # (the humanoids still raise)
-        cfg, train_cfg = task_registry.get_cfgs(task)
-        assert cfg.env.num_observations == 46
-        assert train_cfg.runner.experiment_name == "go2_handstand"
-        assert task_registry.get_task_class(task).__name__ == "GO2HandstandEnv"
-        return
-    with pytest.raises(NotImplementedError):
-        task_registry.get_cfgs(task)
+    """Every task is ported now: its cfgs and class are registered, with
+    the JAX package's obs sizes (privileged obs for the humanoids' critic)
+    and, for the humanoids, the LSTM policy."""
+    obs, priv, cls = {
+        "h1": (41, 44, "H1Env"), "h1_2": (47, 50, "H1_2Env"),
+        "g1": (47, 50, "G1Env"), "go2_handstand": (46, 46, "GO2HandstandEnv"),
+    }[task]
+    cfg, train_cfg = task_registry.get_cfgs(task)
+    assert cfg.env.num_observations == obs
+    assert cfg.env.num_privileged_obs == priv
+    assert train_cfg.runner.experiment_name == task
+    assert task_registry.get_task_class(task).__name__ == cls
+    if task != "go2_handstand":
+        assert train_cfg.runner.policy_class_name == "ActorCriticRecurrent"
 
 
 @pytest.mark.parametrize("knob", ["heightfield", "contact_stiffness", "pd_gain",

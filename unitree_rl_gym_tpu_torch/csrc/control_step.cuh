@@ -104,6 +104,16 @@ static const int kUtrlWarps = kUtrlEnvsPerBlock / kUtrlEnvsPerWarp;
 static const int kUtrlBlocksPerSM = 4;
 // contact points per lane: point c is lane c % G's, slot c / G
 static const int kUtrlPoints = (UTRL_NCP + kUtrlGroup - 1) / kUtrlGroup;
+// The PGS point phase reads the body velocities of kUtrlWvSlots slots into
+// registers before it updates them: all of a lane's slots, unless ten or
+// more slots are every one filled (NCP a multiple of G, so no slot's check
+// can end the loop: g1's 80 points), where the 60 loads held at once spill
+// at 255 registers; then half of them at a time. Each point's update reads
+// only body velocities, which the phase does not write, so either order
+// gives the same bits.
+static const int kUtrlWvSlots =
+    (UTRL_NCP % kUtrlGroup == 0 && kUtrlPoints >= 10) ? (kUtrlPoints + 1) / 2
+                                                       : kUtrlPoints;
 static_assert(kUtrlGroup >= 8 && (kUtrlGroup & (kUtrlGroup - 1)) == 0
               && kUtrlGroup <= kUtrlLanes,
               "a group is a power of two of at least 8 lanes (the base's six rows)");
@@ -1009,55 +1019,58 @@ UTRL_HD void utrl_contact(const ModelTables& M, const W& w) {
         utrl_velocity_prop<true>(M, w, [](auto& s) { return s.vv; });
         const bool first = it == 0, last = it == M.iterations - 1;
         // every point's impulses against the same body velocities (Jacobi):
-        // every slot's body velocity read first, then the slots' updates
-        // and stores
+        // the body velocities of kUtrlWvSlots slots read first, then those
+        // slots' updates and stores
         utrl_phase(w, [&](auto& s, int lane, auto& r, auto&&...) {
             auto& C = s.u.c;
-            float wv[kUtrlPoints][6];
 #pragma unroll
-            for (int p = 0; p < kUtrlPoints; ++p) {
-                const int c = lane + p * kUtrlGroup;
-                if (c >= UTRL_NCP) break;
-                const int b = r.b[p];
-                for (int k = 0; k < 6; ++k) wv[p][k] = C.wl[b][k];
-                if (first) {
-                    const float kb = M.relaxation * C.jacobi[b];
-                    r.kn[p] = kb * M.m_eff_n[c];
-                    r.kt[p] = kb * M.m_eff_t[c];
+            for (int p0 = 0; p0 < kUtrlPoints; p0 += kUtrlWvSlots) {
+                float wv[kUtrlWvSlots][6];
+#pragma unroll
+                for (int q = 0; q < kUtrlWvSlots; ++q) {
+                    const int p = p0 + q, c = lane + p * kUtrlGroup;
+                    if (p >= kUtrlPoints || c >= UTRL_NCP) break;
+                    const int b = r.b[p];
+                    for (int k = 0; k < 6; ++k) wv[q][k] = C.wl[b][k];
+                    if (first) {
+                        const float kb = M.relaxation * C.jacobi[b];
+                        r.kn[p] = kb * M.m_eff_n[c];
+                        r.kt[p] = kb * M.m_eff_t[c];
+                    }
                 }
-            }
 #pragma unroll
-            for (int p = 0; p < kUtrlPoints; ++p) {
-                const int c = lane + p * kUtrlGroup;
-                if (c >= UTRL_NCP) break;
-                const float* ww = wv[p];
-                const float* lw = wv[p] + 3;
-                const float* rw = r.r_w[p];
-                const float vp0 = lw[0] + ww[1] * rw[2] - ww[2] * rw[1];
-                const float vp1 = lw[1] + ww[2] * rw[0] - ww[0] * rw[2];
-                const float vp2 = lw[2] + ww[0] * rw[1] - ww[1] * rw[0];
-                const bool act = r.active >> p & 1u;
-                const float kn = r.kn[p], kt = r.kt[p];
-                const float pn = r.pn[p], ptx = r.ptx[p], pty = r.pty[p];
-                const float pn_new = act ? fmaxf(pn + kn * (r.v_bias[p] - vp2), 0.0f)
-                                         : 0.0f;
-                float ptx_n = ptx + (act ? -kt * vp0 : 0.0f);
-                float pty_n = pty + (act ? -kt * vp1 : 0.0f);
-                const float pt_norm = sqrtf(ptx_n * ptx_n + pty_n * pty_n);
-                const float cone = r.mu * pn_new;
-                const float scale = pt_norm > cone ? cone / (pt_norm + 1e-9f) : 1.0f;
-                ptx_n = ptx_n * scale;
-                pty_n = pty_n * scale;
-                const float dp[3] = {ptx_n - ptx, pty_n - pty, pn_new - pn};
-                utrl_cross(rw, dp, C.nw[c]);
-                for (int i = 0; i < 3; ++i) C.dp[c][i] = dp[i];
-                r.pn[p] = pn_new;
-                r.ptx[p] = ptx_n;
-                r.pty[p] = pty_n;
-                if (last) {
-                    C.pn[c] = pn_new;
-                    C.ptx[c] = ptx_n;
-                    C.pty[c] = pty_n;
+                for (int q = 0; q < kUtrlWvSlots; ++q) {
+                    const int p = p0 + q, c = lane + p * kUtrlGroup;
+                    if (p >= kUtrlPoints || c >= UTRL_NCP) break;
+                    const float* ww = wv[q];
+                    const float* lw = wv[q] + 3;
+                    const float* rw = r.r_w[p];
+                    const float vp0 = lw[0] + ww[1] * rw[2] - ww[2] * rw[1];
+                    const float vp1 = lw[1] + ww[2] * rw[0] - ww[0] * rw[2];
+                    const float vp2 = lw[2] + ww[0] * rw[1] - ww[1] * rw[0];
+                    const bool act = r.active >> p & 1u;
+                    const float kn = r.kn[p], kt = r.kt[p];
+                    const float pn = r.pn[p], ptx = r.ptx[p], pty = r.pty[p];
+                    const float pn_new = act ? fmaxf(pn + kn * (r.v_bias[p] - vp2), 0.0f)
+                                             : 0.0f;
+                    float ptx_n = ptx + (act ? -kt * vp0 : 0.0f);
+                    float pty_n = pty + (act ? -kt * vp1 : 0.0f);
+                    const float pt_norm = sqrtf(ptx_n * ptx_n + pty_n * pty_n);
+                    const float cone = r.mu * pn_new;
+                    const float scale = pt_norm > cone ? cone / (pt_norm + 1e-9f) : 1.0f;
+                    ptx_n = ptx_n * scale;
+                    pty_n = pty_n * scale;
+                    const float dp[3] = {ptx_n - ptx, pty_n - pty, pn_new - pn};
+                    utrl_cross(rw, dp, C.nw[c]);
+                    for (int i = 0; i < 3; ++i) C.dp[c][i] = dp[i];
+                    r.pn[p] = pn_new;
+                    r.ptx[p] = ptx_n;
+                    r.pty[p] = pty_n;
+                    if (last) {
+                        C.pn[c] = pn_new;
+                        C.ptx[c] = ptx_n;
+                        C.pty[c] = pty_n;
+                    }
                 }
             }
         });

@@ -28,9 +28,9 @@ step-start ``q`` (``base_env.py:611-640`` of the JAX package).
 
 Tasks override the hooks of the JAX package's ``LeggedEnv``:
 ``_reward_registry``, ``_noise_scale_vec``, ``_build_obs(ctx)``,
-``_extra_ctx``, ``_compute_target``, ``_check_termination``,
+``_callback``, ``_extra_ctx``, ``_compute_target``, ``_check_termination``,
 ``_init_task_state`` and ``_sample_reset(..., task_state)``
-(envs/go2_handstand.py).
+(envs/go2_handstand.py, envs/humanoid.py).
 
 Randomness comes from one ``torch.Generator`` held by the env on its device
 and seeded from ``cfg.seed`` (``--seed``). It cannot reproduce the JAX
@@ -325,6 +325,11 @@ class LeggedEnv:
         )
         return obs, None
 
+    def _callback(self, ctx, state: EnvState) -> EnvState:
+        """Post-physics, pre-termination hook, after the heading controller
+        (the humanoids' gait phase, envs/humanoid.py). Base: no-op."""
+        return state
+
     def _extra_ctx(self, ctx, state: EnvState):
         """Attach task-specific fields to the reward/obs context."""
         return ctx
@@ -612,6 +617,7 @@ class LeggedEnv:
                 (commands[:, :2], yaw_cmd[:, None], commands[:, 3:]), dim=1)
         state = state.replace(commands=commands)
         ctx.commands = commands
+        state = self._callback(ctx, state)
 
         # ---- termination (legged_robot.py:711-721) ----
         reset_buf, time_out_buf = self._check_termination(ctx)
@@ -762,7 +768,9 @@ class LeggedEnv:
     def _obs_ctx(self, state: EnvState, ctx):
         """The observation context: the reward context with the
         post-reset, post-push state (the reference recomputes obs from
-        refreshed tensors)."""
+        refreshed tensors). What ``_callback`` put in the context (the
+        humanoids' phase) stays as computed before the resets, as in the
+        JAX step."""
         phys = state.phys
         new = types.SimpleNamespace(**vars(ctx))
         new.base_pos = phys.base_pos

@@ -1,9 +1,8 @@
 """Task registry (counterpart of ``unitree_rl_gym_tpu/envs/registry.py``):
 ``get_cfgs``, ``make_env``, ``get_task_class``, ``make_alg_runner``.
 
-This port registers ``go2`` and ``go2_handstand``. The JAX package's other
-tasks (the humanoids h1, h1_2, g1 with their LSTM policies) raise
-``NotImplementedError`` until their slice lands."""
+The port registers the JAX package's five tasks at import: go2, h1, h1_2,
+g1 and go2_handstand."""
 
 from __future__ import annotations
 
@@ -15,13 +14,6 @@ from unitree_rl_gym_tpu_torch import UNITREE_RL_GYM_TPU_ROOT_DIR
 from unitree_rl_gym_tpu_torch.envs.base_env import LeggedEnv
 from unitree_rl_gym_tpu_torch.utils import helpers
 from unitree_rl_gym_tpu_torch.utils.config import LeggedRobotCfg, TrainCfg
-
-_NOT_PORTED = {
-    "h1": "the humanoids and the LSTM policy",
-    "h1_2": "the humanoids and the LSTM policy",
-    "g1": "the humanoids and the LSTM policy",
-}
-
 
 class TaskRegistry:
     def __init__(self):
@@ -35,10 +27,6 @@ class TaskRegistry:
         self.train_cfgs[name] = train_cfg_fn
 
     def _known(self, name):
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"task '{name}' needs {_NOT_PORTED[name]}, not ported yet"
-            )
         if name not in self.task_classes:
             raise ValueError(f"Task with name: {name} was not registered")
 
@@ -104,11 +92,17 @@ task_registry = TaskRegistry()
 
 
 def _register_all():
-    from unitree_rl_gym_tpu_torch.envs import go2, go2_handstand
+    from unitree_rl_gym_tpu_torch.envs import g1, go2, go2_handstand, h1, h1_2
+    from unitree_rl_gym_tpu_torch.envs.humanoid import G1Env, H1Env, H1_2Env
 
     task_registry.register(
         "go2", LeggedEnv, go2.go2_rough_cfg, go2.go2_rough_train_cfg
     )
+    task_registry.register("h1", H1Env, h1.h1_rough_cfg, h1.h1_rough_train_cfg)
+    task_registry.register(
+        "h1_2", H1_2Env, h1_2.h1_2_rough_cfg, h1_2.h1_2_rough_train_cfg
+    )
+    task_registry.register("g1", G1Env, g1.g1_rough_cfg, g1.g1_rough_train_cfg)
     task_registry.register(
         "go2_handstand",
         go2_handstand.GO2HandstandEnv,

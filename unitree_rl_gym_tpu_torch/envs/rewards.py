@@ -4,7 +4,8 @@
 (go2_handstand_env.py:224-383), each batched over envs ([N] outputs). The
 env selects and scales them from ``cfg.rewards.scales`` at build time
 (zero scales pruned, the rest multiplied by the control dt) through its
-``_reward_registry``. The humanoid terms come with the humanoid tasks.
+``_reward_registry``. The humanoid terms (g1_env.py:144-180, shared by
+h1 and h1_2) complete the base set for envs/humanoid.py.
 """
 
 from __future__ import annotations
@@ -115,6 +116,42 @@ def feet_contact_forces(ctx):
 
 def stumble(ctx):  # the name the handstand cfg scales (go2_handstand_config.py:131)
     return feet_stumble(ctx)
+
+
+# ---------------------------------------------------------------------------
+# humanoid terms (g1_env.py:144-180, shared by h1 and h1_2)
+# ---------------------------------------------------------------------------
+
+
+def contact(ctx):
+    """Phase-contact match: stance iff leg phase < 0.55 (g1_env.py:144-152)."""
+    is_stance = ctx.leg_phase < 0.55                              # [N, 2]
+    in_contact = ctx.contact_forces[:, ctx.feet_indices, 2] > 1.0
+    match = ~(in_contact ^ is_stance)
+    return torch.sum(match.to(torch.float32), dim=1)
+
+
+def _feet_in_contact(ctx):
+    return torch.linalg.vector_norm(
+        ctx.contact_forces[:, ctx.feet_indices, :3], dim=2) > 1.0
+
+
+def feet_swing_height(ctx):
+    err = torch.square(ctx.feet_pos[:, :, 2] - 0.08) * (~_feet_in_contact(ctx))
+    return torch.sum(err, dim=1)
+
+
+def alive(ctx):
+    return torch.ones(ctx.num_envs, device=ctx.base_pos.device)
+
+
+def contact_no_vel(ctx):
+    v = ctx.feet_vel * _feet_in_contact(ctx)[..., None]
+    return torch.sum(torch.square(v), dim=(1, 2))
+
+
+def hip_pos(ctx):
+    return torch.sum(torch.square(ctx.dof_pos[:, ctx.hip_indices]), dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +275,15 @@ BASE_REWARDS = dict(
     stumble=stumble,
     stand_still=stand_still,
     feet_contact_forces=feet_contact_forces,
+)
+
+HUMANOID_REWARDS = dict(
+    BASE_REWARDS,
+    contact=contact,
+    feet_swing_height=feet_swing_height,
+    alive=alive,
+    contact_no_vel=contact_no_vel,
+    hip_pos=hip_pos,
 )
 
 HANDSTAND_REWARDS = dict(

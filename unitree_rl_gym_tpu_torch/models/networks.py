@@ -1,22 +1,30 @@
 """Actor-critic networks (counterpart of ``unitree_rl_gym_tpu/models/
-networks.py``: ``ActorCritic``, the Gaussian-policy helpers and
-``build_network``), rsl_rl's MLP model: elu MLP actor and critic, learned
-state-independent log-std.
+networks.py``: ``ActorCritic``, ``LSTMEncoder``, ``ActorCriticRecurrent``,
+``reset_carry``, the Gaussian-policy helpers and ``build_network``),
+rsl_rl's models: elu MLP actor and critic with a learned
+state-independent log-std, and the recurrent variant whose actor and
+critic each read their own LSTM memory (``memory_a``, ``memory_c``).
 
-A network trained from scratch starts like Flax's ``Dense`` defaults:
-lecun-normal kernels (a normal cut at two standard deviations, std
-sqrt(1/fan_in)/0.8796) and zero biases (:func:`lecun_normal_`), drawn from
-the caller's generator. ``dtype`` is the matmul compute type of the JAX
+A network trained from scratch starts like Flax's defaults: lecun-normal
+kernels (a normal cut at two standard deviations, std
+sqrt(1/fan_in)/0.8796) and zero biases for ``Dense`` and for the LSTM's
+input kernels, an orthogonal matrix for each recurrent gate kernel
+(``OptimizedLSTMCell``), drawn from the caller's generator
+(:func:`flax_init_`). ``dtype`` is the matmul compute type of the JAX
 package's ``PolicyCfg.dtype``: parameters stay float32, the layers compute
-in ``dtype`` and the heads return float32.
+in ``dtype`` and the heads return float32; the LSTM carry stays float32.
+
+The recurrent carry is one float32 tensor ``[2, L, 2, N, H]``: memory
+(actor, critic), layer, (c, h) as Flax's ``(c, h)`` carry, env, unit.
 
 Weights come across from the JAX package by their Flax names
-(``params/{actor,critic}/Dense_i/{kernel,bias}`` and ``params/log_std``):
-from the exporter's ``policy_flat.npz`` (:func:`actor_critic_from_flat`), or
-from a live Flax param tree (:func:`actor_critic_from_params`), or into an
-existing network, actor, critic and log-std, to seed a fine-tune
-(:func:`load_flat_params`, the counterpart of the JAX package's
-``export.load_flat_params``). The recurrent policy is not ported yet.
+(``params/{actor,critic}/Dense_i/{kernel,bias}``, ``params/log_std`` and
+``params/memory_{a,c}/lstm_l/{ii,if,ig,io}/kernel`` and
+``{hi,hf,hg,ho}/{kernel,bias}``): from the exporter's ``policy_flat.npz``
+(:func:`actor_critic_from_flat`), or from a live Flax param tree
+(:func:`actor_critic_from_params`), or into an existing network to seed a
+fine-tune (:func:`load_flat_params`, the counterpart of the JAX package's
+``export.load_flat_params``).
 """
 
 from __future__ import annotations
@@ -62,19 +70,56 @@ def mlp(in_dim: int, hidden_dims: Sequence[int], out_dim: int,
     return nn.Sequential(*layers)
 
 
-def lecun_normal_(module: nn.Module, generator: torch.Generator):
-    """Flax's default init in place: every ``nn.Linear`` kernel from a normal
-    of std sqrt(1/fan_in)/0.8796 cut at two of those stds, biases zero."""
+def _lecun_normal(w: torch.Tensor, fan_in: int, generator: torch.Generator):
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+def flax_init_(module: nn.Module, generator: torch.Generator):
+    """Flax's default init in place: every ``nn.Linear`` kernel and LSTM
+    input kernel from a normal of std sqrt(1/fan_in)/0.8796 cut at two of
+    those stds, each LSTM gate's recurrent kernel a random orthogonal
+    matrix, biases zero."""
     with torch.no_grad():
-        for lin in module.modules():
-            if isinstance(lin, nn.Linear):
-                std = math.sqrt(1.0 / lin.in_features) / _TRUNC_STD
-                nn.init.trunc_normal_(lin.weight, 0.0, std, -2.0 * std,
-                                      2.0 * std, generator=generator)
-                nn.init.zeros_(lin.bias)
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                _lecun_normal(m.weight, m.in_features, generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, LSTMCell):
+                _lecun_normal(m.weight_ih, m.weight_ih.shape[1], generator)
+                for w in m.weight_hh.chunk(4, dim=0):
+                    nn.init.orthogonal_(w, generator=generator)
+                nn.init.zeros_(m.bias_hh)
 
 
-class ActorCritic(nn.Module):
+class _GaussianPolicy(nn.Module):
+    """What both actor-critics share: the compute dtype, the learned
+    log-std and the float32 inference copy."""
+
+    is_recurrent = False
+
+    def __init__(self, num_actions: int, init_noise_std: float, dtype: str):
+        super().__init__()
+        if dtype not in _DTYPES:
+            raise ValueError(f"policy dtype must be one of {sorted(_DTYPES)}")
+        self.dtype = dtype
+        self.log_std = nn.Parameter(
+            torch.full((num_actions,), float(np.log(init_noise_std)))
+        )
+
+    def _head(self, seq, x):
+        return seq(x.to(_DTYPES[self.dtype])).to(torch.float32)
+
+    def inference_copy(self):
+        """A float32 copy in eval mode (inference and export are float32;
+        the bf16 compute type is a training-throughput setting)."""
+        net = copy.deepcopy(self).eval()
+        net.dtype = "float32"
+        return net
+
+
+class ActorCritic(_GaussianPolicy):
     """MLP actor-critic; Gaussian policy with a learned global log-std.
     ``forward(obs, critic_obs)`` -> (mu, std, value); ``act`` is the
     actor-only deterministic forward used for inference."""
@@ -83,19 +128,10 @@ class ActorCritic(nn.Module):
                  actor_hidden_dims=(512, 256, 128),
                  critic_hidden_dims=(512, 256, 128), activation="elu",
                  init_noise_std=1.0, num_critic_obs=None, dtype="float32"):
-        super().__init__()
-        if dtype not in _DTYPES:
-            raise ValueError(f"policy dtype must be one of {sorted(_DTYPES)}")
-        self.dtype = dtype
+        super().__init__(num_actions, init_noise_std, dtype)
         self.actor = mlp(num_obs, actor_hidden_dims, num_actions, activation)
         self.critic = mlp(num_critic_obs or num_obs, critic_hidden_dims, 1,
                           activation)
-        self.log_std = nn.Parameter(
-            torch.full((num_actions,), float(np.log(init_noise_std)))
-        )
-
-    def _head(self, seq, x):
-        return seq(x.to(_DTYPES[self.dtype])).to(torch.float32)
 
     def forward(self, obs, critic_obs=None):
         critic_obs = obs if critic_obs is None else critic_obs
@@ -107,12 +143,101 @@ class ActorCritic(nn.Module):
     def act(self, obs):
         return self._head(self.actor, obs)
 
-    def inference_copy(self) -> "ActorCritic":
-        """A float32 copy in eval mode (inference and export are float32;
-        the bf16 compute type is a training-throughput setting)."""
-        net = copy.deepcopy(self).eval()
-        net.dtype = "float32"
-        return net
+
+class LSTMCell(nn.Module):
+    """Flax's ``OptimizedLSTMCell``: gates i, f, g, o from input kernels
+    without bias (``weight_ih`` [4H, in], Flax ``ii/if/ig/io``) and
+    recurrent kernels with bias (``weight_hh`` [4H, H], ``bias_hh``; Flax
+    ``hi/hf/hg/ho``), ``c' = f c + i g``, ``h' = o tanh(c')``. Computes in
+    the dtype of ``x``; ``c`` and ``h`` stay float32, so the mixed products
+    promote as in JAX."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.weight_ih = nn.Parameter(torch.zeros(4 * hidden, in_dim))
+        self.weight_hh = nn.Parameter(torch.zeros(4 * hidden, hidden))
+        self.bias_hh = nn.Parameter(torch.zeros(4 * hidden))
+
+    def forward(self, x, c, h):
+        dt = x.dtype
+        y = (F.linear(h.to(dt), self.weight_hh.to(dt), self.bias_hh.to(dt))
+             + F.linear(x, self.weight_ih.to(dt)))
+        i, f, g, o = y.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+        new_c = f * c + i * torch.tanh(g)
+        new_h = o * torch.tanh(new_c)
+        return new_c.to(torch.float32), new_h.to(torch.float32)
+
+
+class LSTMEncoder(nn.Module):
+    """Stacked LSTM over one time step; carry [L, 2, N, H] ((c, h) per
+    layer). Returns the last layer's h (float32) and the new carry."""
+
+    def __init__(self, in_dim: int, hidden: int, num_layers: int = 1):
+        super().__init__()
+        self.cells = nn.ModuleList(
+            LSTMCell(in_dim if i == 0 else hidden, hidden)
+            for i in range(num_layers))
+
+    def forward(self, x, carry, dtype=torch.float32):
+        layers = []
+        for cell, (c, h) in zip(self.cells, carry):
+            c, x = cell(x.to(dtype), c, h)
+            layers.append(torch.stack((c, x)))
+        return x, torch.stack(layers)
+
+
+class ActorCriticRecurrent(_GaussianPolicy):
+    """LSTM actor-critic (rsl_rl ActorCriticRecurrent): separate memories
+    for the actor (``memory_a``) and the critic (``memory_c``), each
+    followed by its MLP head. ``forward(obs, critic_obs, carry)`` -> (mu,
+    std, value, carry); ``act(obs, carry)`` -> (mu, carry) runs the actor
+    branch alone and leaves the critic's carry as it was."""
+
+    is_recurrent = True
+
+    def __init__(self, num_obs: int, num_actions: int,
+                 actor_hidden_dims=(32,), critic_hidden_dims=(32,),
+                 activation="elu", init_noise_std=0.8, rnn_hidden_size=64,
+                 rnn_num_layers=1, num_critic_obs=None, dtype="float32"):
+        super().__init__(num_actions, init_noise_std, dtype)
+        self.rnn_hidden_size = rnn_hidden_size
+        self.rnn_num_layers = rnn_num_layers
+        self.memory_a = LSTMEncoder(num_obs, rnn_hidden_size, rnn_num_layers)
+        self.memory_c = LSTMEncoder(num_critic_obs or num_obs, rnn_hidden_size,
+                                    rnn_num_layers)
+        self.actor = mlp(rnn_hidden_size, actor_hidden_dims, num_actions,
+                         activation)
+        self.critic = mlp(rnn_hidden_size, critic_hidden_dims, 1, activation)
+
+    def initial_carry(self, batch: int):
+        """Zero carry for ``batch`` envs on the network's device."""
+        return torch.zeros((2, self.rnn_num_layers, 2, batch,
+                            self.rnn_hidden_size), device=self.log_std.device)
+
+    def forward(self, obs, critic_obs=None, carry=None):
+        critic_obs = obs if critic_obs is None else critic_obs
+        if carry is None:
+            carry = self.initial_carry(obs.shape[0])
+        dt = _DTYPES[self.dtype]
+        ha, carry_a = self.memory_a(obs, carry[0], dt)
+        hc, carry_c = self.memory_c(critic_obs, carry[1], dt)
+        mu = self._head(self.actor, ha)
+        value = self._head(self.critic, hc)[..., 0]
+        std = torch.exp(self.log_std).expand_as(mu)
+        return mu, std, value, torch.stack((carry_a, carry_c))
+
+    def act(self, obs, carry):
+        ha, carry_a = self.memory_a(obs, carry[0], _DTYPES[self.dtype])
+        return self._head(self.actor, ha), torch.stack((carry_a, carry[1]))
+
+
+def reset_carry(carry, done):
+    """Zero the carry of done envs (rsl_rl ``Memory.reset(dones)``); None
+    for a network without one."""
+    if carry is None:
+        return None
+    return torch.where(done[:, None], 0.0, carry)
 
 
 # --- Gaussian policy helpers -------------------------------------------------
@@ -138,13 +263,11 @@ def kl_divergence(mu_old, std_old, mu_new, std_new):
 
 
 def build_network(policy_cfg, num_obs: int, num_actions: int,
-                  num_critic_obs=None, generator=None) -> ActorCritic:
-    """A freshly initialised network from ``TrainCfg.policy`` (lecun-normal
-    from ``generator``, on the CPU; the caller moves it)."""
-    if getattr(policy_cfg, "_class_name", None) == "ActorCriticRecurrent":
-        raise NotImplementedError("recurrent (LSTM) policies are not ported yet")
-    net = ActorCritic(
-        num_obs, num_actions,
+                  num_critic_obs=None, generator=None):
+    """A freshly initialised network from ``TrainCfg.policy`` and its
+    ``_class_name`` (``runner.policy_class_name``): Flax's init from
+    ``generator`` (:func:`flax_init_`), on the CPU; the caller moves it."""
+    kw = dict(
         actor_hidden_dims=tuple(policy_cfg.actor_hidden_dims),
         critic_hidden_dims=tuple(policy_cfg.critic_hidden_dims),
         activation=policy_cfg.activation,
@@ -152,7 +275,16 @@ def build_network(policy_cfg, num_obs: int, num_actions: int,
         num_critic_obs=num_critic_obs,
         dtype=getattr(policy_cfg, "dtype", "float32"),
     )
-    lecun_normal_(net, generator)
+    if getattr(policy_cfg, "_class_name", None) == "ActorCriticRecurrent":
+        if policy_cfg.rnn_type != "lstm":
+            raise NotImplementedError(f"rnn_type '{policy_cfg.rnn_type}': "
+                                      "the JAX package has only the LSTM")
+        net = ActorCriticRecurrent(
+            num_obs, num_actions, rnn_hidden_size=policy_cfg.rnn_hidden_size,
+            rnn_num_layers=policy_cfg.rnn_num_layers, **kw)
+    else:
+        net = ActorCritic(num_obs, num_actions, **kw)
+    flax_init_(net, generator)
     return net
 
 
@@ -167,62 +299,112 @@ def _dense_stack(arrays: Dict[str, np.ndarray], head: str):
     return out
 
 
-def actor_critic_from_flat(arrays: Dict[str, np.ndarray], meta: dict) -> ActorCritic:
-    """An :class:`ActorCritic` holding the given Flax-named weights. Each
-    Flax kernel [in, out] becomes the ``nn.Linear`` weight [out, in]. Takes
-    the exporter's ``policy_flat.npz`` arrays or the JAX package's live params
-    flattened to the same names; hidden widths are read off the arrays."""
-    if meta.get("is_recurrent"):
-        raise NotImplementedError("recurrent (LSTM) policies are not ported yet")
+_GATES = ("i", "f", "g", "o")
+
+
+def _lstm_stack(arrays: Dict[str, np.ndarray], scope: str, where: str = "weights"):
+    """The layers of ``params/<scope>/lstm_l`` as torch's layout:
+    (weight_ih [4H, in], weight_hh [4H, H], bias_hh [4H]), the gates'
+    kernels transposed and stacked in i, f, g, o order
+    (``export/export.py::_lstm_to_torch``). A missing layer 0 raises."""
+    first = f"params/{scope}/lstm_0/ii/kernel"
+    if first not in arrays:
+        raise ValueError(f"{where}: no {first} (the {scope} LSTM weights of "
+                         "a recurrent policy)")
+    out = []
+    l = 0
+    while f"params/{scope}/lstm_{l}/ii/kernel" in arrays:
+        pre = f"params/{scope}/lstm_{l}"
+        out.append((
+            np.concatenate([arrays[f"{pre}/i{g}/kernel"].T for g in _GATES]),
+            np.concatenate([arrays[f"{pre}/h{g}/kernel"].T for g in _GATES]),
+            np.concatenate([arrays[f"{pre}/h{g}/bias"] for g in _GATES]),
+        ))
+        l += 1
+    return out
+
+
+def actor_critic_from_flat(arrays: Dict[str, np.ndarray], meta: dict):
+    """An :class:`ActorCritic` (``meta["is_recurrent"]``: an
+    :class:`ActorCriticRecurrent`) holding the given Flax-named weights.
+    Each Flax kernel [in, out] becomes the torch weight [out, in]. Takes the
+    exporter's ``policy_flat.npz`` arrays or the JAX package's live params
+    flattened to the same names; widths are read off the arrays."""
     actor = _dense_stack(arrays, "actor")
     critic = _dense_stack(arrays, "critic")
     if not actor:
         raise ValueError("no params/actor/Dense_0 in the weights")
-    num_obs, num_actions = actor[0][0].shape[0], actor[-1][0].shape[1]
-    net = ActorCritic(
-        num_obs, num_actions,
+    num_actions = actor[-1][0].shape[1]
+    kw = dict(
         actor_hidden_dims=[k.shape[1] for k, _ in actor[:-1]],
-        critic_hidden_dims=[k.shape[1] for k, _ in critic[:-1]] or [512, 256, 128],
         activation=meta.get("activation", "elu"),
-        num_critic_obs=critic[0][0].shape[0] if critic else None,
         dtype=meta.get("dtype", "float32"),
     )
-    _copy_flat(net, actor, critic, arrays.get("params/log_std"))
+    if meta.get("is_recurrent"):
+        mem_a = _lstm_stack(arrays, "memory_a")
+        mem_c = _lstm_stack(arrays, "memory_c")
+        hidden = mem_a[0][1].shape[1]
+        net = ActorCriticRecurrent(
+            mem_a[0][0].shape[1], num_actions,
+            critic_hidden_dims=[k.shape[1] for k, _ in critic[:-1]] or [32],
+            rnn_hidden_size=hidden, rnn_num_layers=len(mem_a),
+            num_critic_obs=mem_c[0][0].shape[1], **kw)
+    else:
+        net = ActorCritic(
+            actor[0][0].shape[0], num_actions,
+            critic_hidden_dims=[k.shape[1] for k, _ in critic[:-1]] or [512, 256, 128],
+            num_critic_obs=critic[0][0].shape[0] if critic else None, **kw)
+    _copy_flat(net, arrays, arrays.get("params/log_std"))
     return net
 
 
-def _copy_flat(net: ActorCritic, actor, critic, log_std):
-    """Copy Flax kernels [in, out] (transposed) and biases into ``net``'s
-    linears, and ``log_std`` where given; a shape that differs raises."""
+def _copy_flat(net, arrays, log_std, where="weights"):
+    """Copy the Flax-named ``arrays`` into ``net``: kernels [in, out]
+    (transposed) and biases into its linears, a recurrent net's LSTM
+    layers, and ``log_std`` where given. Every layer of ``net`` must find
+    its array with its shape, or this raises ``ValueError`` before it
+    copies anything."""
+    pairs = []
+    for head in ("actor", "critic"):
+        linears = [m for m in getattr(net, head) if isinstance(m, nn.Linear)]
+        dense = _dense_stack(arrays, head)
+        shapes = [tuple(lin.weight.shape[::-1]) for lin in linears]
+        if [k.shape for k, _ in dense] != shapes:
+            raise ValueError(f"{where}: {head} kernels {[k.shape for k, _ in dense]} "
+                             f"do not fit the network's {shapes}")
+        for lin, (k, b) in zip(linears, dense):
+            pairs += [(lin.weight, k.T), (lin.bias, b)]
+    if net.is_recurrent:
+        for scope in ("memory_a", "memory_c"):
+            cells = getattr(net, scope).cells
+            layers = _lstm_stack(arrays, scope, where)
+            mine = [tuple(tuple(w.shape) for w in (c.weight_ih, c.weight_hh,
+                                                   c.bias_hh)) for c in cells]
+            theirs = [tuple(a.shape for a in layer) for layer in layers]
+            if mine != theirs:
+                raise ValueError(f"{where}: {scope} LSTM {theirs} does not fit "
+                                 f"the network's {mine}")
+            for c, layer in zip(cells, layers):
+                pairs += list(zip((c.weight_ih, c.weight_hh, c.bias_hh), layer))
+    if log_std is not None:
+        pairs.append((net.log_std, log_std))
     with torch.no_grad():
-        for seq, dense in ((net.actor, actor), (net.critic, critic)):
-            linears = [m for m in seq if isinstance(m, nn.Linear)]
-            for lin, (k, b) in zip(linears, dense):
-                lin.weight.copy_(torch.tensor(k.T, dtype=torch.float32))
-                lin.bias.copy_(torch.tensor(b, dtype=torch.float32))
-        if log_std is not None:
-            net.log_std.copy_(torch.tensor(log_std, dtype=torch.float32))
+        for param, a in pairs:
+            param.copy_(torch.as_tensor(np.asarray(a), dtype=torch.float32))
 
 
-def load_flat_params(net: ActorCritic, path: str) -> ActorCritic:
+def load_flat_params(net, path: str):
     """Load the full train params of a ``policy_flat.npz`` (``path`` is the
-    file or its directory) into ``net`` in place: actor, critic and log-std
-    by their Flax names, kernels transposed. Every layer of ``net`` must
-    find its array, with its shape; returns ``net``."""
+    file or its directory) into ``net`` in place: actor, critic, a
+    recurrent net's memories and log-std by their Flax names, kernels
+    transposed. Every layer of ``net`` must find its array, with its shape;
+    returns ``net``."""
     f = path if path.endswith(".npz") else os.path.join(path, "policy_flat.npz")
     with np.load(f) as z:
         arrays = dict(z)
-    actor = _dense_stack(arrays, "actor")
-    critic = _dense_stack(arrays, "critic")
-    for head, dense in (("actor", actor), ("critic", critic)):
-        linears = [m for m in getattr(net, head) if isinstance(m, nn.Linear)]
-        shapes = [tuple(lin.weight.shape[::-1]) for lin in linears]
-        if [k.shape for k, _ in dense] != shapes:
-            raise ValueError(f"{f}: {head} kernels {[k.shape for k, _ in dense]} "
-                             f"do not fit the network's {shapes}")
     if "params/log_std" not in arrays:
         raise ValueError(f"{f} holds no params/log_std")
-    _copy_flat(net, actor, critic, arrays["params/log_std"])
+    _copy_flat(net, arrays, arrays["params/log_std"], where=f)
     return net
 
 
@@ -239,13 +421,14 @@ def flatten_params(tree, prefix="") -> Dict[str, np.ndarray]:
     return out
 
 
-def actor_critic_from_params(tree, **kw) -> ActorCritic:
-    """An :class:`ActorCritic` holding a JAX ``ActorCritic``'s param tree
-    (numpy leaves); ``kw`` go to :func:`actor_critic_from_flat`'s meta."""
+def actor_critic_from_params(tree, **kw):
+    """The network holding a JAX ``ActorCritic`` or ``ActorCriticRecurrent``
+    param tree (numpy leaves); ``kw`` go to :func:`actor_critic_from_flat`'s
+    meta (``is_recurrent=True`` for the LSTM)."""
     return actor_critic_from_flat(flatten_params(tree), dict(kw))
 
 
-def load_flat_policy(path: str, device) -> ActorCritic:
+def load_flat_policy(path: str, device):
     """Load ``<path>/policy_flat.npz`` + ``policy_meta.json`` onto ``device``
     in eval mode."""
     with open(os.path.join(path, "policy_meta.json")) as f:

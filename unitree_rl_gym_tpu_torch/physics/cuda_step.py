@@ -420,11 +420,13 @@ def build(m: soa.SoAModel, library: str = "control_step") -> str:
     return path
 
 
-def build_all(models) -> Dict[tuple, str]:
+def build_all(models, only=()) -> Dict[tuple, str]:
     """Build every library of :data:`LIBRARIES` for every SoAModel of
-    ``models``, all nvcc processes started together; returns
-    {(library, sizes): path}. A failed build raises."""
+    ``models``, and each (SoAModel, library) pair of ``only``, all nvcc
+    processes started together; returns {(library, sizes): path}. A failed
+    build raises."""
     jobs = {(lib, size_defines(m)): (m, lib) for m in models for lib in LIBRARIES}
+    jobs.update({(lib, size_defines(m)): (m, lib) for m, lib in only})
     out, errors = {}, []
 
     def one(key):

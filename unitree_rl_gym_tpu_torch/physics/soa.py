@@ -35,6 +35,14 @@ def _is_const(x) -> bool:
     return isinstance(x, (int, float, np.floating))
 
 
+def _div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x / s`` as one rounded division on every device, as the kernel
+    and the JAX package divide: torch divides a CUDA tensor by a Python
+    scalar as a product with the scalar's float32 reciprocal, which rounds
+    otherwise (the PGS solve amplifies that last bit)."""
+    return x / torch.full_like(x, s)
+
+
 def _add(a, b):
     if _is_const(a) and a == 0.0:
         return b
@@ -665,7 +673,7 @@ def contact_solve_s(m: SoAModel, params, E_up, R_w, p_w, chol,
     active = phi > 0.0
     activef = active.to(torch.float32)
     v_bias = torch.clamp(
-        params.baumgarte * torch.clamp(phi, min=0.0) / dt,
+        _div(params.baumgarte * torch.clamp(phi, min=0.0), dt),
         max=params.max_depenetration_velocity,
     )
     if cstiff is not None:
@@ -768,7 +776,7 @@ def substep_s(m, params, pd_kp, pd_kd, pd_lim, clip_torque, sim_dt,
             j = k - 6
             passive = _sub(
                 _mul(-m.dof_damping[j], v[6 + j]),
-                _mul(m.dof_friction[j], torch.tanh(v[6 + j] / 0.1))
+                _mul(m.dof_friction[j], torch.tanh(_div(v[6 + j], 0.1)))
                 if m.dof_friction[j] != 0.0 else 0.0,
             )
             rhs.append(_sub(_add(tau[j], passive), bias[k]))
@@ -830,7 +838,7 @@ def rb_states_s(m: SoAModel, R_w, p_w, v_b):
 
 def cf_rb_s(m: SoAModel, pn, pt, dt, like):
     """Per-report-body world contact force [nrb][3] from final impulses."""
-    fx, fy, fz = pt[0] / dt, pt[1] / dt, pn / dt
+    fx, fy, fz = _div(pt[0], dt), _div(pt[1], dt), _div(pn, dt)
     zeros = torch.zeros_like(like)
     out = []
     for r in range(m.nrb):

@@ -1,5 +1,5 @@
-"""PPO for the MLP actor-critic (counterpart of ``unitree_rl_gym_tpu/rl/
-ppo.py``), the rsl_rl v1.0.2 contract:
+"""PPO for the MLP and LSTM actor-critics (counterpart of
+``unitree_rl_gym_tpu/rl/ppo.py``), the rsl_rl v1.0.2 contract:
 
   * a rollout of ``num_steps`` control steps over all envs, stored in
     [T, N, ...] tensors on the device; on terrain the heightfield windows
@@ -15,6 +15,12 @@ ppo.py``), the rsl_rl v1.0.2 contract:
     (betas 0.9/0.999, eps 1e-8) at that rate — the order of the JAX
     package's ``_apply_step``;
   * one permutation of the T*N samples per update, reused by every epoch;
+  * an LSTM policy (``net.is_recurrent``): the rollout carries the policy's
+    carry and zeroes a done env's carry after its step; the update draws
+    one permutation of the N envs, minibatch i is the env columns
+    ``perm[i*mb:(i+1)*mb]`` over all T steps (the remainder of N mod
+    ``num_mini_batches`` is dropped), and the loss replays the LSTM from
+    the rollout's start carry with the same done masking;
   * the task knobs of ``AlgorithmCfg`` (the JAX ``PPO._loss`` and
     ``_apply_step``): class re-weighting (``class_target_frac``: one-sided,
     capped at ``class_weight_cap``, mean-one weights on the surrogate,
@@ -28,8 +34,7 @@ ppo.py``), the rsl_rl v1.0.2 contract:
 
 The learning rate lives on the host, so each minibatch step reads its KL
 (and, with ``nan_guard``, its finiteness) back from the device: one
-synchronisation per minibatch, 20 per update at the defaults. The
-recurrent update is not ported yet.
+synchronisation per minibatch, 20 per update at the defaults.
 
 Env data parallelism (``block``, a ``parallel.mesh.EnvBlock``; the JAX
 package gets it from XLA's collectives under one global program): the
@@ -57,7 +62,8 @@ up to the order of floating-point sums.
 One process is the block of one rank (``block`` None gives it). Its draws
 and minibatches take the same path; it makes no collective, and takes the
 mean of the loss and the std of GAE as torch does, so every result is bit
-for bit the one-process result.
+for bit the one-process result. A recurrent net trains on one rank only:
+across ranks it raises (ROADMAP module 11's remainder).
 """
 
 from __future__ import annotations
@@ -76,7 +82,10 @@ from unitree_rl_gym_tpu_torch.utils.config import AlgorithmCfg
 
 class Batch(NamedTuple):
     """Training samples, [B, ...] (or [T, N, ...] as rollout storage).
-    ``critic_obs`` is None when the critic reads the actor's obs."""
+    ``critic_obs`` is None when the critic reads the actor's obs. A
+    recurrent net's samples stay [T, B, ...], with the done flags [T, B]
+    and the carry at the window's start (``initial_carry``'s layout) that
+    the loss replays the LSTM from; both are None for an MLP."""
 
     obs: torch.Tensor
     critic_obs: Optional[torch.Tensor]
@@ -87,6 +96,12 @@ class Batch(NamedTuple):
     returns: Optional[torch.Tensor]
     mu: torch.Tensor
     std: torch.Tensor
+    dones: Optional[torch.Tensor] = None
+    carry0: Optional[torch.Tensor] = None
+
+
+# the per-sample fields of a Batch come first, then the replay's
+_SAMPLE_FIELDS = Batch._fields.index("dones")
 
 
 def _sync(device):
@@ -107,7 +122,7 @@ class PPO:
     ``n_local`` under env data parallelism (``block``; see the module
     docstring)."""
 
-    def __init__(self, net: nets.ActorCritic, cfg: AlgorithmCfg, num_steps: int,
+    def __init__(self, net, cfg: AlgorithmCfg, num_steps: int,
                  num_envs: int, device, share_critic_obs: bool = False,
                  seed: int = 0, state_class_fn: Optional[Callable] = None,
                  anchor_mask_fn: Optional[Callable] = None, block=None):
@@ -118,6 +133,11 @@ class PPO:
         self.block = env_block(num_envs, 0, 1) if block is None else block
         if self.block.n_local != num_envs:
             raise ValueError(f"{num_envs} envs on a block of {self.block.n_local}")
+        self.recurrent = net.is_recurrent
+        if self.recurrent and self.block.world_size > 1:
+            raise NotImplementedError(
+                "recurrent PPO over more than one rank is not ported yet "
+                "(ROADMAP module 11's remainder)")
         self.num_envs_global = self.block.n_global
         # more than one rank: the cross-env sums are all-reduced
         self.distributed = self.block.world_size > 1
@@ -135,7 +155,7 @@ class PPO:
         self.state_class_fn = state_class_fn
         self.anchor_mask_fn = anchor_mask_fn
         # frozen copy of the policy for the anchor KL (set_anchor)
-        self.anchor: Optional[nets.ActorCritic] = None
+        self.anchor = None
 
     def set_anchor(self, state_dict=None):
         """Freeze a copy of the network as the anchor of
@@ -150,11 +170,21 @@ class PPO:
     # rollout
     # ------------------------------------------------------------------
 
+    def _forward(self, obs, critic_obs, carry):
+        """(mu, std, value, carry) of the net; the carry stays None for an
+        MLP."""
+        if self.recurrent:
+            return self.net(obs, critic_obs, carry)
+        return self.net(obs, critic_obs) + (None,)
+
     @torch.no_grad()
-    def rollout(self, env, env_state, obs, critic_obs):
+    def rollout(self, env, env_state, obs, critic_obs, carry=None):
         """Collect ``num_steps`` transitions. Returns (env_state, obs,
-        critic_obs, transitions as a [T, N, ...] :class:`Batch` with
-        rewards and dones, ep_stats)."""
+        critic_obs, carry, transitions as a [T, N, ...] :class:`Batch`,
+        rewards, dones, ep_stats). ``carry``: a recurrent net's carry at the
+        start (None for an MLP); a done env's carry is zeroed after its
+        step, and the transitions of a recurrent net hold the dones and
+        the start carry."""
         T, N, gamma = self.num_steps, self.num_envs, self.cfg.gamma
         every = int(getattr(env.cfg.terrain, "window_refresh_steps", 0))
         every = every if 0 < every < T else T
@@ -167,11 +197,12 @@ class PPO:
         ep_len_sum = torch.zeros((), dtype=torch.int64, device=dev)
         rew_sum = torch.zeros((), device=dev)
         terrain_level = max_cmd_x = torch.zeros((), device=dev)
+        carry_start = carry
         for t in range(T):
             if getattr(env, "terrain", None) is not None and t % every == 0:
                 env_state = env.refresh_terrain(env_state)
-            mu, std, value = self.net(obs, None if self.share_critic_obs
-                                      else critic_obs)
+            mu, std, value, carry = self._forward(
+                obs, None if self.share_critic_obs else critic_obs, carry)
             eps = self.block.rows(torch.randn(
                 (self.num_envs_global,) + mu.shape[1:], generator=self.gen,
                 device=dev))
@@ -179,6 +210,7 @@ class PPO:
             logp = nets.log_prob(mu, std, actions)
             env_state, next_obs, next_priv, rew, done, extras = env.step(
                 env_state, actions, refresh_terrain=False)
+            carry = nets.reset_carry(carry, done)
             # time-out bootstrap (rsl_rl process_env_step)
             rew_b = rew + gamma * value * extras["time_outs"].to(rew.dtype)
             for k, x in (("obs", obs), ("actions", actions),
@@ -200,6 +232,7 @@ class PPO:
             obs=st["obs"], critic_obs=st["critic_obs"], actions=st["actions"],
             log_probs=st["log_probs"], values=st["values"], advantages=None,
             returns=None, mu=st["mu"], std=st["std"],
+            dones=st["dones"] if self.recurrent else None, carry0=carry_start,
         )
         if self.distributed:
             # the iteration's logging sums over all ranks, in one collective
@@ -222,7 +255,7 @@ class PPO:
             "terrain_level_mean": terrain_level,
             "max_command_x": max_cmd_x,
         }
-        return (env_state, obs, critic_obs, transitions, st["rewards"],
+        return (env_state, obs, critic_obs, carry, transitions, st["rewards"],
                 st["dones"], ep_stats)
 
     # ------------------------------------------------------------------
@@ -291,10 +324,24 @@ class PPO:
             return w / torch.mean(w)
         return w / ((c_sum * w1 + (count - c_sum) * w0) / count)
 
+    def _replay(self, b: Batch):
+        """A recurrent minibatch's (mu, std, value), flattened t-major to
+        [T*B, ...]: the LSTM replayed over its T steps from ``b.carry0``,
+        a done env's carry zeroed after its step, as in the rollout."""
+        carry, outs = b.carry0, []
+        for t in range(b.obs.shape[0]):
+            mu, std, value, carry = self.net(
+                b.obs[t], None if b.critic_obs is None else b.critic_obs[t],
+                carry)
+            carry = nets.reset_carry(carry, b.dones[t])
+            outs.append((mu, std, value))
+        return tuple(torch.cat(x) for x in zip(*outs))
+
     def loss(self, b: Batch, count: Optional[int] = None):
-        """PPO loss on a minibatch [B, ...]; returns (loss, (surrogate,
-        value loss, kl, anchor loss)) with the stats detached (the anchor
-        loss is 0 where the anchor KL is off).
+        """PPO loss on a minibatch [B, ...] (a recurrent net's: [T, B, ...]
+        with its dones and start carry, replayed by :meth:`_replay`);
+        returns (loss, (surrogate, value loss, kl, anchor loss)) with the
+        stats detached (the anchor loss is 0 where the anchor KL is off).
 
         ``count`` (env data parallelism): the size of the global minibatch
         of which ``b`` holds this rank's samples. Every mean is then a sum
@@ -305,6 +352,15 @@ class PPO:
         use_anchor = (cfg.anchor_kl_coef > 0.0 and self.anchor is not None
                       and self.state_class_fn is not None)
         mask_fn = self.anchor_mask_fn or self.state_class_fn
+        recurrent = b.carry0 is not None
+        if recurrent:
+            if use_anchor:
+                raise NotImplementedError(
+                    "the anchor KL supports feed-forward policies only, as "
+                    "in the JAX package")
+            mu, std, value = self._replay(b)
+            b = Batch(*(None if x is None else x.flatten(0, 1)
+                        for x in b[:_SAMPLE_FIELDS]))
         sums = None
         if count is not None and (use_w or use_anchor):
             # the global class-1 count and anchor-mask count: one collective
@@ -313,7 +369,8 @@ class PPO:
             sums = all_reduce_sum(torch.stack((
                 self.state_class_fn(b.obs).to(torch.float32).sum() if use_w else z,
                 mask_fn(b.obs).to(torch.float32).sum() if use_anchor else z)))
-        mu, std, value = self.net(b.obs, b.critic_obs)
+        if not recurrent:
+            mu, std, value = self.net(b.obs, b.critic_obs)
 
         def mean(x):
             return torch.mean(x) if count is None else torch.sum(x) / count
@@ -459,10 +516,24 @@ class PPO:
         ``perm`` of the T*N global samples: minibatch i holds this rank's
         samples of ``perm[i*mb:(i+1)*mb]`` (global flat index
         ``t*N_global + n``), in the permutation's order; one rank holds
-        them all. Returns (list of :class:`Batch`, mb: the global
-        minibatch size)."""
+        them all. A recurrent net's ``perm`` permutes the N global envs and
+        minibatch i is the env columns ``perm[i*mb:(i+1)*mb]`` over all T
+        steps, with their dones and start carry. Returns (list of
+        :class:`Batch`, the global minibatch's sample count)."""
         T, N = transitions.advantages.shape
         nmb = self.cfg.num_mini_batches
+        if self.recurrent:
+            mb = self.num_envs_global // nmb
+            out = []
+            for i in range(nmb):
+                n = perm[i * mb:(i + 1) * mb] - self.block.offset
+                local = n[(n >= 0) & (n < N)]
+                out.append(Batch(
+                    *(None if x is None else x[:, local]
+                      for x in transitions[:_SAMPLE_FIELDS]),
+                    dones=transitions.dones[:, local],
+                    carry0=transitions.carry0[:, :, :, local]))
+            return out, T * mb
         mb = (T * self.num_envs_global) // nmb
 
         def flat(x):
@@ -475,19 +546,20 @@ class PPO:
             t, n = g // ng, g % ng - off
             local = (t * N + n)[(n >= 0) & (n < N)]
             out.append(Batch(*(None if x is None else flat(x)[local]
-                               for x in transitions)))
+                               for x in transitions[:_SAMPLE_FIELDS])))
         return out, mb
 
     def update(self, transitions: Batch, advantages, returns, perm=None):
         """num_learning_epochs x num_mini_batches PPO steps over one
-        permutation of the T*N global samples (``perm``: that permutation,
-        drawn from the PPO generator when None)."""
+        permutation of the T*N global samples (a recurrent net's: of the N
+        global envs; ``perm``: that permutation, drawn from the PPO
+        generator when None)."""
         cfg = self.cfg
         T = advantages.shape[0]
         full = transitions._replace(advantages=advantages, returns=returns)
         if perm is None:
-            perm = torch.randperm(T * self.num_envs_global, generator=self.gen,
-                                  device=self.device)
+            n = self.num_envs_global * (1 if self.recurrent else T)
+            perm = torch.randperm(n, generator=self.gen, device=self.device)
         mbs, mb = self.minibatches(full, perm.to(self.device))
         stats = torch.zeros(4, device=self.device)
         skipped = 0
@@ -512,19 +584,20 @@ class PPO:
     # one training iteration
     # ------------------------------------------------------------------
 
-    def train_iteration(self, env, env_state, obs, critic_obs):
-        """Rollout, GAE, update. Returns (env_state, obs, critic_obs,
-        metrics); ``metrics`` holds device tensors plus the host seconds of
-        the rollout and the update (the device is synchronised between
-        them). Both run as ``torch.profiler`` ranges ("ppo_rollout",
-        "ppo_update")."""
+    def train_iteration(self, env, env_state, obs, critic_obs, carry=None):
+        """Rollout, GAE, update. Returns (env_state, obs, critic_obs, carry,
+        metrics); ``carry`` is a recurrent net's carry (None for an MLP),
+        and the last value reads the rollout's final carry. ``metrics``
+        holds device tensors plus the host seconds of the rollout and the
+        update (the device is synchronised between them). Both run as
+        ``torch.profiler`` ranges ("ppo_rollout", "ppo_update")."""
         t0 = time.perf_counter()
         with torch.profiler.record_function("ppo_rollout"):
-            env_state, obs, critic_obs, tr, rewards, dones, ep = self.rollout(
-                env, env_state, obs, critic_obs)
+            (env_state, obs, critic_obs, carry, tr, rewards, dones,
+             ep) = self.rollout(env, env_state, obs, critic_obs, carry)
             with torch.no_grad():
-                _, _, last_value = self.net(
-                    obs, None if self.share_critic_obs else critic_obs)
+                _, _, last_value, _ = self._forward(
+                    obs, None if self.share_critic_obs else critic_obs, carry)
             advantages, returns = self.compute_gae(tr.values, rewards, dones,
                                                    last_value)
             _sync(self.device)
@@ -535,4 +608,4 @@ class PPO:
         metrics.update(ep)
         metrics["rollout_s"] = t1 - t0
         metrics["update_s"] = time.perf_counter() - t1
-        return env_state, obs, critic_obs, metrics
+        return env_state, obs, critic_obs, carry, metrics

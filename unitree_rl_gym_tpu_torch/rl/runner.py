@@ -5,9 +5,11 @@
     runner.learn(num_learning_iterations, init_at_random_ep_len=True)
     runner.save(path) / runner.load(path)
     runner.set_anchor()      # freeze the policy for the anchor KL
-    policy = runner.get_inference_policy()
+    policy = runner.get_inference_policy()   # policy(obs); policy.reset_memory()
 
-It runs on the env's device. The env's ``ppo_state_class_fn`` and
+It runs on the env's device. An LSTM policy's carry (``ActorCriticRecurrent``)
+runs on from iteration to iteration, as the env state does; a checkpoint
+holds the LSTM weights with the rest of the network. The env's ``ppo_state_class_fn`` and
 ``ppo_anchor_mask_fn``, where it has them, go to PPO's class re-weighting
 and anchor KL (the JAX runner's ``state_class_fn`` / ``anchor_mask_fn``).
 The anchor is not part of a checkpoint, as in the JAX package. Checkpoints are the port's own format:
@@ -78,6 +80,7 @@ class OnPolicyRunner:
         self._env_state = None
         self._obs = None
         self._critic_obs = None
+        self._carry = None
         # one row of metrics per iteration, dumped as curves.json next to
         # the checkpoints
         self._curves: List[dict] = []
@@ -91,6 +94,8 @@ class OnPolicyRunner:
             self._env_state = state
             self._obs = obs
             self._critic_obs = state.priv_obs if state.priv_obs is not None else obs
+            if self.net.is_recurrent:
+                self._carry = self.net.initial_carry(self.env.num_envs)
 
     def learn(self, num_learning_iterations: int,
               init_at_random_ep_len: bool = False) -> List[dict]:
@@ -102,9 +107,10 @@ class OnPolicyRunner:
         rows = []
         for it in range(start, start + num_learning_iterations):
             t0 = time.perf_counter()
-            (self._env_state, self._obs, self._critic_obs,
+            (self._env_state, self._obs, self._critic_obs, self._carry,
              metrics) = self.alg.train_iteration(
-                self.env, self._env_state, self._obs, self._critic_obs)
+                self.env, self._env_state, self._obs, self._critic_obs,
+                self._carry)
             metrics = {k: v.tolist() if torch.is_tensor(v) else v
                        for k, v in metrics.items()}
             dt = time.perf_counter() - t0
@@ -204,11 +210,24 @@ class OnPolicyRunner:
         self.alg.set_anchor(params)
 
     def get_inference_policy(self):
-        """The deterministic (mean) actor as a float32 function of obs."""
+        """The deterministic (mean) actor as a float32 function of obs. An
+        LSTM policy holds its carry in the closure from call to call, with
+        no per-env reset, and ``policy.reset_memory()`` zeroes it (the JAX
+        runner's policy, after the reference's exported stateful module)."""
         net = self.net.inference_copy()
+        holder = {"carry": None}
 
         @torch.no_grad()
         def policy(obs):
-            return net.act(obs)
+            if not net.is_recurrent:
+                return net.act(obs)
+            if holder["carry"] is None:
+                holder["carry"] = net.initial_carry(obs.shape[0])
+            mu, holder["carry"] = net.act(obs, holder["carry"])
+            return mu
 
+        def reset_memory():
+            holder["carry"] = None
+
+        policy.reset_memory = reset_memory
         return policy

@@ -6,7 +6,8 @@
 Counterpart of ``unitree_rl_gym_tpu/scripts/play.py``: a small eval env
 (noise, friction DR and pushes off; ``--num_envs`` overrides the cap of
 100), the flat-weight policy of ``--load_flat`` (default
-``resources/pre_train/<task>``), an inference loop and aggregate stats.
+``resources/pre_train/<task>``; an MLP, or the humanoids' LSTM), an
+inference loop and aggregate stats.
 The runner, its checkpoints and export come with the training slice, so
 this script exports nothing yet. The loop keeps its statistics on the
 device and reads them once at the end, so it never waits on the card.
@@ -53,8 +54,10 @@ def policy_dir(args) -> str:
 @torch.no_grad()
 def rollout(env, policy, state, obs, num_steps: int, settle: int):
     """``num_steps`` control steps of policy inference + ``env.step`` from
-    (state, obs). Tracking errors and non-timeout terminations count after
-    step ``settle``. Returns (state, obs, stats) with host numbers in
+    (state, obs). An LSTM policy starts from a zero carry and carries it
+    through every step with no per-env reset, as the JAX package's play
+    does. Tracking errors and non-timeout terminations count after step
+    ``settle``. Returns (state, obs, stats) with host numbers in
     ``stats``; the loop itself never waits on the device."""
     dev = env.device
     n_terms = len(env.episode_term_names)
@@ -62,8 +65,12 @@ def rollout(env, policy, state, obs, num_steps: int, settle: int):
     n_resets = torch.zeros((), dtype=torch.int64, device=dev)
     errs = torch.zeros(4, device=dev)       # |vx|, |vy|, |yaw rate| errors, height
     falls = torch.zeros((), dtype=torch.int64, device=dev)
+    carry = policy.initial_carry(env.num_envs) if policy.is_recurrent else None
     for i in range(num_steps):
-        actions = policy.act(obs)
+        if carry is None:
+            actions = policy.act(obs)
+        else:
+            actions, carry = policy.act(obs, carry)
         state, obs, _, rew, done, extras = env.step(state, actions)
         ep_sums += extras["episode_sums_at_reset"]
         n_resets += extras["episode_reset_count"]

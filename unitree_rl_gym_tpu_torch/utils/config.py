@@ -72,16 +72,15 @@ class TerrainCfg:
     num_cols: int = 20
     terrain_proportions: List[float] = _l(0.1, 0.1, 0.35, 0.25, 0.2)
     slope_treshold: float = 0.75
-    # Per-env resident heightfield windows (the TPU formulation): in-scan
-    # height lookups read a [W, W] window carried in EnvState via a
-    # tent-weight einsum instead of gathering from the global heightfield
-    # (in-scan gathers serialize at ~10 ns/element on XLA:TPU,
-    # doc/profile_r3.md). The einsum is O(W^2) per contact point, so W is
-    # kept as small as the refresh cadence allows: PPO chunks its rollout
-    # scan and re-centers windows every `window_refresh_steps` control
-    # steps at program top level via the block-major fetch
-    # (TerrainGrid.window_at: ~0.6 ms at 4096 envs; W must be a multiple
-    # of 8). Safety margin at the defaults: the block-aligned fetch
+    # Per-env resident heightfield windows (the JAX package's formulation,
+    # kept by the port): per-step height lookups read a [W, W] window
+    # carried in EnvState via a tent-weight contraction instead of
+    # gathering from the global heightfield (the JAX package chose this
+    # because gathers inside its rollout scan serialise, doc/profile_r3.md).
+    # The contraction is O(W^2) per contact point, so W is kept as small as
+    # the refresh cadence allows: PPO re-centers windows every
+    # `window_refresh_steps` control steps via the block-major fetch
+    # (TerrainGrid.window_at; W must be a multiple of 8). Safety margin at the defaults: the block-aligned fetch
     # guarantees >= 8 cells (0.8 m) from the robot to the window edge vs
     # worst-case contact-point reach from base xy (~0.5 m) plus drift
     # over 12 steps at the 1.5 m/s push-cap velocity (~0.36 m, partially
@@ -307,8 +306,8 @@ class PolicyCfg:
     actor_hidden_dims: List[int] = _l(512, 256, 128)
     critic_hidden_dims: List[int] = _l(512, 256, 128)
     activation: str = "elu"
-    # matmul compute dtype (params + losses stay fp32). bfloat16 runs the
-    # MXU at full rate; set "float32" for exact-reproducibility studies.
+    # matmul compute dtype (params + losses stay fp32). bfloat16 is the
+    # training default; set "float32" for exact-reproducibility studies.
     dtype: str = "bfloat16"
     # only for ActorCriticRecurrent:
     rnn_type: str = "lstm"
@@ -357,12 +356,11 @@ class AlgorithmCfg:
     # non-finite (params/optimizer state/LR keep their previous values
     # for that step). One critic-explosion minibatch otherwise NaNs every
     # parameter through the global-norm clip. No rsl_rl analog; semantics
-    # identical on any run that never produces a non-finite step — but
-    # the per-minibatch where-trees measured ~5% on the recurrent path
-    # (g1 3.09M -> 2.93M env-steps/s), so it is OFF by default and
-    # enabled by the fine-tune drivers whose staged-termination regimes
-    # actually produce the explosions (scripts/handstand_*_r5.py;
-    # doc/handstand_r5_notes.md finding 3).
+    # identical on any run that never produces a non-finite step. The
+    # per-minibatch finiteness checks cost time on the recurrent path, so
+    # it is OFF by default and enabled by the fine-tune drivers whose
+    # staged-termination regimes actually produce the explosions
+    # (scripts/handstand_*_r5.py; doc/handstand_r5_notes.md finding 3).
     nan_guard: bool = False
 
 
