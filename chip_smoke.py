@@ -15,7 +15,8 @@ go2 training over 2 torch.distributed ranks (kernel K4: each rank's launch
 of its K1, K3 or K2 instance on its 2048-env block), and the humanoids
 g1, h1 and h1_2 with their LSTM actor-critics: play of the shipped
 policies and g1 training with recurrent PPO (K1 and K3 at the humanoids'
-sizes) — and holds every kernel of those paths against its plain PyTorch
+sizes), and play's resume-and-export of go2 and g1 with the exported
+TorchScript policies driven through K1 — and holds every kernel of those paths against its plain PyTorch
 version on the same inputs (K4 on each rank's block, and against the rows
 of a one-process launch, bit for bit):
 
@@ -178,6 +179,27 @@ of a one-process launch, bit for bit):
               included) loads into a fresh runner bit for bit; then one
               profiled iteration (profile_train_g1: device ms by kernel,
               idle share).
+ 25-26. export and play of the exported policies (``export_phases``): a
+              runner on the card takes the shipped weights
+              (``networks.load_flat_params``) and saves ``model_0.pt`` in a
+              run directory; ``scripts/play.py``'s entry (``play.play``:
+              ``--resume``, 4096 envs, ``--device=cuda``, 400 steps) loads it,
+              exports it to the run's ``exported/policies`` and plays it: K1
+              launched 401 times (the 400 steps and ``reset_all``'s
+              zero-action step) and never K3, K2 or K4, non-timeout
+              terminations after play's settling window at most 1% of the
+              envs, and ``policy.bin`` byte for byte the shipped file:
+ 25. export   go2 (MLP): ``policy_1.pt`` loaded onto the card within 1e-5 of
+              the runner's float32 inference policy on the 4096 final
+              observations, and on the CPU within 1e-5 of the export's
+              ``NumpyPolicy``; then 400 steps of play's rollout driven by
+              the loaded TorchScript module itself through K1, under the
+              same gates (K1 400 times). Both rollouts' env-steps/s are
+              printed;
+ 26. export_lstm  g1 (LSTM): ``policy_lstm_1.pt`` on the card, stepped over
+              env 0's observations of 100 g1 steps through K1, within 1e-4
+              of the float32 inference policy with its carry, and
+              ``reset_memory()`` gives its first output again exactly.
 
 Each phase prints one JSON line with its wall time. Any failure raises and
 the script exits non-zero; without CUDA it exits non-zero before printing a
@@ -220,6 +242,11 @@ G1_TRAIN_ITERS = 5            # counted g1 training iterations
 # misses it (tests/jax_play_falls.py on the CPU, 64 envs, the same steps;
 # PERF.md), in which case its rate plus one percentage point
 PLAY_FALL_BAR = {"h1_2": 0.01, "g1": 0.01}
+EXPORT_PLAY_STEPS = 400       # play steps of each exported policy (export phases)
+EXPORT_LSTM_STEPS = 100       # g1 steps whose env-0 observations step policy_lstm_1.pt
+EXPORT_MLP_ATOL = 1e-5        # policy_1.pt against the runner's float32 inference policy
+EXPORT_LSTM_ATOL = 1e-4       # policy_lstm_1.pt against it, carry and all
+EXPORT_FALL_BAR = 0.01        # the slice phase's bar, after play's settling window
 # the humanoid instances the paths run: (name, task, terrain, artifact)
 HUMANOID_INSTANCES = (
     ("K1 g1", "g1", False, "g1"), ("K1 h1", "h1", False, "h1"),
@@ -1906,6 +1933,153 @@ def profile_step(env, policy, play, torch, step_ms):
     }
 
 
+def export_phases(torch, dev):
+    """Phases 25-26: play's resume-and-export on the card, then the exported
+    files against the policy they came from. Returns K1's launches per task
+    (go2 at go2's sizes, g1 at g1's)."""
+    import filecmp
+    import tempfile
+    import types
+
+    import numpy as np
+
+    from unitree_rl_gym_tpu_torch import resource
+    from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+    from unitree_rl_gym_tpu_torch.export.numpy_policy import NumpyPolicy
+    from unitree_rl_gym_tpu_torch.models.networks import load_flat_params
+    from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
+    from unitree_rl_gym_tpu_torch.scripts import play
+    from unitree_rl_gym_tpu_torch.utils import helpers
+
+    def checked_play(run, what, k1):
+        """``run()`` between zeroed and read counts: K1 ``k1`` times, and
+        never K3, K2 or K4."""
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == {"k4": 0, "k1": k1, "k3": 0, "k2": 0},
+              f"{what}: launches {counts} in {EXPORT_PLAY_STEPS} steps")
+        return out, counts["k1"]
+
+    def check_falls(stats, what):
+        rate = stats["falls"] / N_ENVS
+        check(rate <= EXPORT_FALL_BAR,
+              f"{what}: {stats['falls']} non-timeout terminations after settling "
+              f"({rate:.2%}), above the bar {EXPORT_FALL_BAR:.2%}")
+        return rate
+
+    launches = {}
+    for task, phase in (("go2", "export"), ("g1", "export_lstm")):
+        t0 = time.time()
+        tmp = tempfile.TemporaryDirectory()
+        shipped = resource(f"resources/pre_train/{task}")
+        args = helpers.get_args([f"--task={task}", f"--num_envs={N_ENVS}", "--device=cuda",
+                                 "--resume", f"--experiment_name={tmp.name}"])
+        # the checkpoint to resume: a runner on the card with the shipped weights
+        env_cfg, train_cfg = task_registry.get_cfgs(task)
+        env_cfg.env.num_envs = 8
+        env, _ = task_registry.make_env(task, env_cfg=env_cfg, device=dev)
+        runner = OnPolicyRunner(env, train_cfg, None)
+        load_flat_params(runner.net, shipped)
+        check(all(p.is_cuda for p in runner.net.parameters()), "the runner is not on the card")
+        runner.save(os.path.join(tmp.name, "Jan01_00-00-00_shipped", "model_0.pt"))
+        del runner, env
+
+        # the entry's reset_all takes one zero-action step: one launch more
+        out, k1 = checked_play(lambda: play.play(args, num_steps=EXPORT_PLAY_STEPS),
+                               f"{task} play --resume", EXPORT_PLAY_STEPS + 1)
+        env, policy, stats = out["env"], out["policy"], out["stats"]
+        exported = out["export_dir"]
+        check(exported == os.path.join(tmp.name, "exported", "policies"),
+              f"exported to {exported}")
+        check(all(p.is_cuda for p in policy.parameters()), "the played policy is not on the card")
+        rate = check_falls(stats, f"{task} play --resume")
+        check(filecmp.cmp(os.path.join(exported, "policy.bin"),
+                          os.path.join(shipped, "policy.bin"), shallow=False),
+              f"{task}: the exported policy.bin differs from the shipped one")
+        result = {"phase": phase, "task": task, "n_envs": N_ENVS, "steps": EXPORT_PLAY_STEPS,
+                  "exported": sorted(os.listdir(exported)),
+                  "policy_bin_equals_shipped": True,
+                  "play_k1_launches": k1,
+                  "play_env_steps_per_s": N_ENVS * EXPORT_PLAY_STEPS / out["rollout_s"],
+                  "play_fall_rate": rate, "play_falls": stats["falls"]}
+
+        if not policy.is_recurrent:
+            obs = out["obs"]
+            mod = torch.jit.load(os.path.join(exported, "policy_1.pt"), map_location=dev)
+            with torch.no_grad():
+                err = float((mod(obs) - policy.act(obs)).abs().max())
+                check(err <= EXPORT_MLP_ATOL, f"policy_1.pt on the card: {err} from the "
+                      f"runner's inference policy (bar {EXPORT_MLP_ATOL})")
+                cpu_mod = torch.jit.load(os.path.join(exported, "policy_1.pt"),
+                                         map_location="cpu")
+                obs_cpu = obs.cpu()
+                np_err = float(np.abs(cpu_mod(obs_cpu).numpy()
+                                      - NumpyPolicy(exported)(obs_cpu.numpy())).max())
+            check(np_err <= EXPORT_MLP_ATOL, f"policy_1.pt on the CPU: {np_err} from "
+                  f"NumpyPolicy (bar {EXPORT_MLP_ATOL})")
+            # play's rollout driven by the loaded TorchScript module itself
+            state, obs = env.reset_all()
+            ts_policy = types.SimpleNamespace(is_recurrent=False, act=mod)
+            t_loop = time.time()
+            (state, obs, ts_stats), k1_ts = checked_play(
+                lambda: play.rollout(env, ts_policy, state, obs, EXPORT_PLAY_STEPS,
+                                     settle=EXPORT_PLAY_STEPS // 5),
+                "go2 play of policy_1.pt", EXPORT_PLAY_STEPS)
+            loop_s = time.time() - t_loop
+            k1 += k1_ts
+            for k in ("base_pos", "base_quat", "joint_q", "v"):
+                check(bool(torch.isfinite(getattr(state.phys, k)).all()), f"non-finite {k}")
+            result.update({
+                "torchscript_cuda_max_abs_err": err, "torchscript_cpu_vs_numpy_max_abs_err": np_err,
+                "atol": EXPORT_MLP_ATOL, "torchscript_play_k1_launches": k1_ts,
+                "torchscript_play_env_steps_per_s": N_ENVS * EXPORT_PLAY_STEPS / loop_s,
+                "torchscript_play_fall_rate": check_falls(ts_stats, "go2 play of policy_1.pt"),
+                "torchscript_play_abs_vx_tracking_err": ts_stats["abs_vx_tracking_err"]})
+        else:
+            # env 0's observations and actions over EXPORT_LSTM_STEPS steps of
+            # the float32 inference policy with its carry, through K1
+            state, obs = env.reset_all()
+            carry = policy.initial_carry(N_ENVS)
+            obs0, act0 = [], []
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            with torch.no_grad():
+                for _ in range(EXPORT_LSTM_STEPS):
+                    actions, carry = policy.act(obs, carry)
+                    obs0.append(obs[:1].clone())
+                    act0.append(actions[:1].clone())
+                    state, obs, *_ = env.step(state, actions)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            check(counts == {"k4": 0, "k1": EXPORT_LSTM_STEPS, "k3": 0, "k2": 0},
+                  f"g1 rollout: launches {counts} in {EXPORT_LSTM_STEPS} steps")
+            k1 += counts["k1"]
+            mod = torch.jit.load(os.path.join(exported, "policy_lstm_1.pt"), map_location=dev)
+            check(mod.hidden_state.is_cuda, "policy_lstm_1.pt is not on the card")
+            with torch.no_grad():
+                mod.reset_memory()
+                got = [mod(o) for o in obs0]
+                err = max(float((g - a).abs().max()) for g, a in zip(got, act0))
+                mod.reset_memory()
+                again = mod(obs0[0])
+            check(err <= EXPORT_LSTM_ATOL, f"policy_lstm_1.pt on the card: {err} from the "
+                  f"float32 inference policy over {EXPORT_LSTM_STEPS} steps "
+                  f"(bar {EXPORT_LSTM_ATOL})")
+            check(torch.equal(again, got[0]), "reset_memory() did not restore the first output")
+            result.update({"lstm_steps": EXPORT_LSTM_STEPS, "rollout_k1_launches": counts["k1"],
+                           "torchscript_cuda_max_abs_err": err, "atol": EXPORT_LSTM_ATOL,
+                           "reset_memory_first_output_equal": True})
+        launches[task] = k1
+        emit(dict(result, k1_launches=k1, seconds=time.time() - t0))
+        del out, env, policy, state, obs
+        tmp.cleanup()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _time_limit(signum, frame):
     raise TimeoutError(f"chip_smoke ran past {TIME_LIMIT_S} s")
 
@@ -2099,6 +2273,16 @@ def main():
 
     # ---- 21-24. the humanoids with their LSTM policies (K1, K3) ----
     humanoid_entries = humanoid_phases(torch, dev, n_sm)
+
+    # ---- 25-26. play's resume-and-export, the exported policies (K1) ----
+    export_launches = export_phases(torch, dev)
+    launches += export_launches["go2"]
+    for (name, *_), entry in zip(HUMANOID_INSTANCES, humanoid_entries):
+        if name == "K1 g1":
+            entry["launches"] += export_launches["g1"]
+            entry["launches_path"] += (
+                f" + {EXPORT_PLAY_STEPS} steps of scripts/play.py --resume and "
+                f"{EXPORT_LSTM_STEPS} steps checking policy_lstm_1.pt")
 
     emit({"kernels": [{
         "name": "control_step_flat",

@@ -1,7 +1,10 @@
 """The port runs where there is no JAX: in a fresh interpreter whose import
 system refuses jax, jaxlib, flax, optax and unitree_rl_gym_tpu (the GPU
 machine's situation), every module of unitree_rl_gym_tpu_torch (the PPO
-runner and the terrain included) and chip_smoke import, the go2 env builds
+runner and the terrain included; the export, ``utils/viz.py``,
+``utils/flax_msgpack.py`` and the deploy stack, whose modules import
+mujoco, yaml, msgpack and unitree_sdk2py only inside the functions that
+use them) and chip_smoke import, the go2 env builds
 on the CPU at N=4 and steps once, and its PPO runner builds and acts; the
 go2_handstand env of the robustness fine-tune (its DR on) builds and
 resets, and the fine-tune's runner (its PPO knobs on) takes the shipped

@@ -41,7 +41,7 @@ from torch import nn
 from torch.nn import functional as F
 
 # every policy the repo ships uses elu
-_ACTIVATIONS = {"elu": nn.ELU}
+ACTIVATIONS = {"elu": nn.ELU}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 LOG2PI = math.log(2.0 * math.pi)
@@ -60,11 +60,11 @@ class Dense(nn.Linear):
 
 def mlp(in_dim: int, hidden_dims: Sequence[int], out_dim: int,
         activation: str) -> nn.Sequential:
-    if activation not in _ACTIVATIONS:
+    if activation not in ACTIVATIONS:
         raise NotImplementedError(f"activation '{activation}' is not ported yet")
     layers, d = [], in_dim
     for h in hidden_dims:
-        layers += [Dense(d, h), _ACTIVATIONS[activation]()]
+        layers += [Dense(d, h), ACTIVATIONS[activation]()]
         d = h
     layers.append(Dense(d, out_dim))
     return nn.Sequential(*layers)
@@ -288,7 +288,7 @@ def build_network(policy_cfg, num_obs: int, num_actions: int,
     return net
 
 
-def _dense_stack(arrays: Dict[str, np.ndarray], head: str):
+def dense_stack(arrays: Dict[str, np.ndarray], head: str):
     """Flax kernels [in, out] and biases of ``params/<head>/Dense_i``."""
     out = []
     i = 0
@@ -302,7 +302,7 @@ def _dense_stack(arrays: Dict[str, np.ndarray], head: str):
 _GATES = ("i", "f", "g", "o")
 
 
-def _lstm_stack(arrays: Dict[str, np.ndarray], scope: str, where: str = "weights"):
+def lstm_stack(arrays: Dict[str, np.ndarray], scope: str, where: str = "weights"):
     """The layers of ``params/<scope>/lstm_l`` as torch's layout:
     (weight_ih [4H, in], weight_hh [4H, H], bias_hh [4H]), the gates'
     kernels transposed and stacked in i, f, g, o order
@@ -330,8 +330,8 @@ def actor_critic_from_flat(arrays: Dict[str, np.ndarray], meta: dict):
     Each Flax kernel [in, out] becomes the torch weight [out, in]. Takes the
     exporter's ``policy_flat.npz`` arrays or the JAX package's live params
     flattened to the same names; widths are read off the arrays."""
-    actor = _dense_stack(arrays, "actor")
-    critic = _dense_stack(arrays, "critic")
+    actor = dense_stack(arrays, "actor")
+    critic = dense_stack(arrays, "critic")
     if not actor:
         raise ValueError("no params/actor/Dense_0 in the weights")
     num_actions = actor[-1][0].shape[1]
@@ -341,8 +341,8 @@ def actor_critic_from_flat(arrays: Dict[str, np.ndarray], meta: dict):
         dtype=meta.get("dtype", "float32"),
     )
     if meta.get("is_recurrent"):
-        mem_a = _lstm_stack(arrays, "memory_a")
-        mem_c = _lstm_stack(arrays, "memory_c")
+        mem_a = lstm_stack(arrays, "memory_a")
+        mem_c = lstm_stack(arrays, "memory_c")
         hidden = mem_a[0][1].shape[1]
         net = ActorCriticRecurrent(
             mem_a[0][0].shape[1], num_actions,
@@ -354,20 +354,22 @@ def actor_critic_from_flat(arrays: Dict[str, np.ndarray], meta: dict):
             actor[0][0].shape[0], num_actions,
             critic_hidden_dims=[k.shape[1] for k, _ in critic[:-1]] or [512, 256, 128],
             num_critic_obs=critic[0][0].shape[0] if critic else None, **kw)
-    _copy_flat(net, arrays, arrays.get("params/log_std"))
+    copy_flat(net, arrays)
     return net
 
 
-def _copy_flat(net, arrays, log_std, where="weights"):
-    """Copy the Flax-named ``arrays`` into ``net``: kernels [in, out]
-    (transposed) and biases into its linears, a recurrent net's LSTM
-    layers, and ``log_std`` where given. Every layer of ``net`` must find
-    its array with its shape, or this raises ``ValueError`` before it
-    copies anything."""
+def torch_layout(net, arrays, where="weights"):
+    """The Flax-named ``arrays`` in ``net``'s layout: ``[(param, array)]``
+    for every linear's weight (the kernel [in, out] transposed) and bias, a
+    recurrent net's LSTM layers (:func:`lstm_stack`), and ``log_std``
+    where ``arrays`` has ``params/log_std``. Takes a tree of the params'
+    shape (the params themselves, or Adam's moments of them). Every layer
+    of ``net`` must find its array with its shape, or this raises
+    ``ValueError``."""
     pairs = []
     for head in ("actor", "critic"):
         linears = [m for m in getattr(net, head) if isinstance(m, nn.Linear)]
-        dense = _dense_stack(arrays, head)
+        dense = dense_stack(arrays, head)
         shapes = [tuple(lin.weight.shape[::-1]) for lin in linears]
         if [k.shape for k, _ in dense] != shapes:
             raise ValueError(f"{where}: {head} kernels {[k.shape for k, _ in dense]} "
@@ -377,7 +379,7 @@ def _copy_flat(net, arrays, log_std, where="weights"):
     if net.is_recurrent:
         for scope in ("memory_a", "memory_c"):
             cells = getattr(net, scope).cells
-            layers = _lstm_stack(arrays, scope, where)
+            layers = lstm_stack(arrays, scope, where)
             mine = [tuple(tuple(w.shape) for w in (c.weight_ih, c.weight_hh,
                                                    c.bias_hh)) for c in cells]
             theirs = [tuple(a.shape for a in layer) for layer in layers]
@@ -386,11 +388,48 @@ def _copy_flat(net, arrays, log_std, where="weights"):
                                  f"the network's {mine}")
             for c, layer in zip(cells, layers):
                 pairs += list(zip((c.weight_ih, c.weight_hh, c.bias_hh), layer))
-    if log_std is not None:
-        pairs.append((net.log_std, log_std))
+    if "params/log_std" in arrays:
+        pairs.append((net.log_std, arrays["params/log_std"]))
+    return pairs
+
+
+def copy_flat(net, arrays, where="weights"):
+    """Copy the Flax-named ``arrays`` into ``net`` (:func:`torch_layout`);
+    nothing is copied unless every layer fits."""
+    pairs = torch_layout(net, arrays, where)
     with torch.no_grad():
         for param, a in pairs:
             param.copy_(torch.as_tensor(np.asarray(a), dtype=torch.float32))
+
+
+def flat_from_actor_critic(net) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`actor_critic_from_flat`: ``net``'s parameters
+    as float32 numpy arrays under their Flax names, in the order of the JAX
+    exporter's ``policy_flat.npz`` (``jax.tree_util``'s, keys sorted at
+    every level): each weight [out, in] back to a kernel [in, out], and an
+    LSTM layer's stacked i, f, g, o rows split into the input kernels
+    ``ii/if/ig/io`` (no bias) and the recurrent ``hi/hf/hg/ho`` with their
+    biases."""
+    def arr(t):
+        return np.ascontiguousarray(t.detach().to("cpu", torch.float32).numpy())
+
+    tree = {"log_std": arr(net.log_std)}
+    for head in ("actor", "critic"):
+        linears = [m for m in getattr(net, head) if isinstance(m, nn.Linear)]
+        tree[head] = {f"Dense_{i}": {"kernel": arr(lin.weight.T), "bias": arr(lin.bias)}
+                      for i, lin in enumerate(linears)}
+    if net.is_recurrent:
+        for scope in ("memory_a", "memory_c"):
+            tree[scope] = {}
+            for l, c in enumerate(getattr(net, scope).cells):
+                w_ih, w_hh, b_hh = (w.chunk(4, dim=0) for w in
+                                    (c.weight_ih, c.weight_hh, c.bias_hh))
+                layer = {}
+                for g, wi, wh, b in zip(_GATES, w_ih, w_hh, b_hh):
+                    layer[f"i{g}"] = {"kernel": arr(wi.T)}
+                    layer[f"h{g}"] = {"kernel": arr(wh.T), "bias": arr(b)}
+                tree[scope][f"lstm_{l}"] = layer
+    return flatten_params({"params": tree})
 
 
 def load_flat_params(net, path: str):
@@ -404,15 +443,16 @@ def load_flat_params(net, path: str):
         arrays = dict(z)
     if "params/log_std" not in arrays:
         raise ValueError(f"{f} holds no params/log_std")
-    _copy_flat(net, arrays, arrays["params/log_std"], where=f)
+    copy_flat(net, arrays, where=f)
     return net
 
 
 def flatten_params(tree, prefix="") -> Dict[str, np.ndarray]:
     """A nested Flax param tree (``{"params": {"actor": {"Dense_0": ...}}}``)
-    as ``{"params/actor/Dense_0/kernel": array, ...}``."""
+    as ``{"params/actor/Dense_0/kernel": array, ...}``, keys sorted at every
+    level as ``jax.tree_util`` orders them."""
     out = {}
-    for k, v in tree.items():
+    for k, v in sorted(tree.items()):
         name = f"{prefix}{k}"
         if hasattr(v, "items"):
             out.update(flatten_params(v, name + "/"))

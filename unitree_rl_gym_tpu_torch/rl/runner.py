@@ -17,8 +17,9 @@ The anchor is not part of a checkpoint, as in the JAX package. Checkpoints are t
 dicts, the learning rate, the iteration and the state of the PPO generator)
 every ``save_interval`` iterations and at the end, each with the JSON meta
 ``model_<iteration>.pt.json`` of the JAX runner, and ``curves.json`` (one
-row of metrics per iteration) beside them. Reading the JAX package's Flax
-``.ckpt`` files is not ported yet, nor the TensorBoard writer.
+row of metrics per iteration) beside them. ``load`` also reads the JAX
+package's Flax ``model_<iteration>.ckpt`` (params, lr, iteration and Adam's
+moments). The TensorBoard writer is not ported.
 
 Env data parallelism: with an env that holds one rank's block of the envs
 (``env.block``, ``parallel.mesh.EnvBlock``), every rank runs this runner on
@@ -41,6 +42,7 @@ import torch
 from unitree_rl_gym_tpu_torch.models import networks as nets
 from unitree_rl_gym_tpu_torch.parallel.mesh import broadcast_
 from unitree_rl_gym_tpu_torch.rl.ppo import PPO
+from unitree_rl_gym_tpu_torch.utils import flax_msgpack
 from unitree_rl_gym_tpu_torch.utils.config import TrainCfg, class_to_dict
 
 
@@ -192,12 +194,41 @@ class OnPolicyRunner:
                 json.dump(self._curves, f)
 
     def load(self, path: str, load_optimizer: bool = True):
+        """Restore a checkpoint: the port's ``model_<it>.pt``, or by its
+        suffix a JAX package's ``model_<it>.ckpt`` (:meth:`_load_jax`)."""
+        if path.endswith(".ckpt"):
+            return self._load_jax(path, load_optimizer)
         payload = torch.load(path, map_location="cpu", weights_only=True)
         self.net.load_state_dict(payload["model"])
         self.alg.lr = float(payload["lr"])
         if load_optimizer:
             self.alg.optimizer.load_state_dict(payload["optimizer"])
             self.alg.gen.set_state(payload["generator"])
+        self.current_learning_iteration = int(payload["iteration"])
+        return payload
+
+    def _load_jax(self, path: str, load_optimizer: bool):
+        """A JAX runner's Flax checkpoint: its params by their Flax names
+        (kernels transposed, LSTM gates stacked), ``lr`` and ``iteration``,
+        and with ``load_optimizer`` optax's Adam state as torch Adam's: its
+        ``count`` as every parameter's ``step``, ``mu`` and ``nu`` as
+        ``exp_avg`` and ``exp_avg_sq`` in the parameters' layout. The JAX
+        PRNG key has no counterpart; the PPO generator stays as it is."""
+        payload = flax_msgpack.load(path)
+        nets.copy_flat(self.net, nets.flatten_params(payload["params"]), where=path)
+        self.alg.lr = float(payload["lr"])
+        if load_optimizer:
+            # optax.chain(clip_by_global_norm, scale_by_adam): the second
+            # state is Adam's (rl/ppo.py of the JAX package, make_optimizer)
+            adam = payload["opt_state"]["1"]
+            moments = [nets.torch_layout(self.net, nets.flatten_params(adam[k]), path)
+                       for k in ("mu", "nu")]
+            for (p, mu), (_, nu) in zip(*moments):
+                self.alg.optimizer.state[p] = {
+                    "step": torch.tensor(float(adam["count"])),
+                    "exp_avg": torch.as_tensor(mu, dtype=torch.float32, device=p.device),
+                    "exp_avg_sq": torch.as_tensor(nu, dtype=torch.float32, device=p.device),
+                }
         self.current_learning_iteration = int(payload["iteration"])
         return payload
 

@@ -1,30 +1,40 @@
-"""Evaluate a policy in the port: actor inference followed by
-``LeggedEnv.step``, on the GPU unless ``--device=cpu``.
+"""Evaluate a policy in the port and export it: actor inference followed
+by ``LeggedEnv.step``, on the GPU unless ``--device=cpu``.
 
     python -m unitree_rl_gym_tpu_torch.scripts.play --task=go2 --num_envs=4096
+    python -m unitree_rl_gym_tpu_torch.scripts.play --task=g1 --resume
 
 Counterpart of ``unitree_rl_gym_tpu/scripts/play.py``: a small eval env
 (noise, friction DR and pushes off; ``--num_envs`` overrides the cap of
-100), the flat-weight policy of ``--load_flat`` (default
-``resources/pre_train/<task>``; an MLP, or the humanoids' LSTM), an
-inference loop and aggregate stats.
-The runner, its checkpoints and export come with the training slice, so
-this script exports nothing yet. The loop keeps its statistics on the
-device and reads them once at the end, so it never waits on the card.
+100), an inference loop and aggregate stats. With ``--resume``,
+``--load_run`` or ``--checkpoint`` it builds the runner
+(``task_registry.make_alg_runner``), loads the newest (or the named)
+checkpoint under ``logs/<experiment_name>/`` (the port's ``.pt`` or the JAX
+package's ``.ckpt``), plays its float32 inference copy and exports it to
+``logs/<experiment_name>/exported/policies`` (``EXPORT_POLICY``;
+``export/export.py``). Otherwise it plays the flat-weight policy of
+``--load_flat`` (default ``resources/pre_train/<task>``; an MLP, or the
+humanoids' LSTM) and exports nothing. ``--view`` replays env 0 in MuJoCo
+(``utils/viz.py``). The loop keeps its statistics on the device and reads
+them once at the end, so it never waits on the card (``--view`` reads the
+state back every step).
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
 
 from unitree_rl_gym_tpu_torch import UNITREE_RL_GYM_TPU_ROOT_DIR, resolve_device
+from unitree_rl_gym_tpu_torch.export.export import export_policy
 from unitree_rl_gym_tpu_torch.models.networks import load_flat_policy
 from unitree_rl_gym_tpu_torch.utils import helpers
 from unitree_rl_gym_tpu_torch.utils.logger import Logger
 
+EXPORT_POLICY = True
 NUM_STEPS = 500
 
 
@@ -51,14 +61,35 @@ def policy_dir(args) -> str:
     )
 
 
+def resumes(args) -> bool:
+    """Play a checkpoint (and export it) rather than a flat-weight policy."""
+    return bool(args.resume) or args.load_run is not None or args.checkpoint is not None
+
+
+def resume_runner(args, env):
+    """The runner of ``args.task`` on ``env`` with its newest (or the named)
+    checkpoint loaded (play.py:36-39)."""
+    from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+
+    _, train_cfg = task_registry.get_cfgs(name=args.task)
+    train_cfg.runner.resume = True
+    runner, _ = task_registry.make_alg_runner(
+        env=env, name=args.task, args=args, train_cfg=train_cfg)
+    return runner
+
+
 @torch.no_grad()
-def rollout(env, policy, state, obs, num_steps: int, settle: int):
+def rollout(env, policy, state, obs, num_steps: int, settle: int, viewer=None):
     """``num_steps`` control steps of policy inference + ``env.step`` from
-    (state, obs). An LSTM policy starts from a zero carry and carries it
-    through every step with no per-env reset, as the JAX package's play
-    does. Tracking errors and non-timeout terminations count after step
-    ``settle``. Returns (state, obs, stats) with host numbers in
-    ``stats``; the loop itself never waits on the device."""
+    (state, obs). ``policy`` has ``is_recurrent`` and ``act``: ``act(obs)``
+    -> actions, or for an LSTM ``act(obs, carry)`` -> (actions, carry) and
+    ``initial_carry(n)``; the carry starts at zero and runs through every
+    step with no per-env reset, as the JAX package's play does. Tracking
+    errors and non-timeout terminations count after step ``settle``.
+    ``viewer`` (``utils.viz.RolloutViewer``) shows each step and ends the
+    loop when its window closes. Returns (state, obs, stats) with host
+    numbers in ``stats``; without a viewer the loop never waits on the
+    device."""
     dev = env.device
     n_terms = len(env.episode_term_names)
     ep_sums = torch.zeros(n_terms, device=dev)
@@ -72,6 +103,8 @@ def rollout(env, policy, state, obs, num_steps: int, settle: int):
         else:
             actions, carry = policy.act(obs, carry)
         state, obs, _, rew, done, extras = env.step(state, actions)
+        if viewer is not None and not viewer.update(state):
+            break
         ep_sums += extras["episode_sums_at_reset"]
         n_resets += extras["episode_reset_count"]
         if i >= settle:
@@ -98,12 +131,37 @@ def rollout(env, policy, state, obs, num_steps: int, settle: int):
 
 
 def play(args, num_steps: int = NUM_STEPS):
+    """Play (and, resuming a checkpoint, export) as the module docstring
+    says. Returns a dict: ``stats`` of :func:`rollout`, the ``env``, the
+    ``policy`` played, the final ``obs``, the ``export_dir`` (None where
+    nothing was exported) and the rollout's wall seconds ``rollout_s``."""
     device = resolve_device(args.device)
     env = make_play_env(args, device)
-    policy = load_flat_policy(policy_dir(args), device)
+    out_dir = None
+    if resumes(args):
+        runner = resume_runner(args, env)
+        policy = runner.net.inference_copy()
+        if EXPORT_POLICY:
+            out_dir = os.path.join(UNITREE_RL_GYM_TPU_ROOT_DIR, "logs",
+                                   runner.cfg.runner.experiment_name, "exported", "policies")
+            export_policy(runner, out_dir)
+            print("Exported policy to:", out_dir)
+    else:
+        policy = load_flat_policy(policy_dir(args), device)
+    viewer = None
+    if args.view:
+        from unitree_rl_gym_tpu_torch.utils.viz import RolloutViewer
+
+        viewer = RolloutViewer(args.task, env, realtime=env.cfg.env.test)
     state, obs = env.reset_all()
-    _, obs, stats = rollout(env, policy, state, obs, num_steps,
-                            settle=num_steps // 5)
+    t0 = time.perf_counter()
+    try:
+        _, obs, stats = rollout(env, policy, state, obs, num_steps,
+                                settle=num_steps // 5, viewer=viewer)
+    finally:
+        if viewer is not None:
+            viewer.close()
+    rollout_s = time.perf_counter() - t0   # rollout read its stats: synced
 
     logger = Logger(env.dt)
     if stats["episodes"]:
@@ -118,7 +176,8 @@ def play(args, num_steps: int = NUM_STEPS):
     logger.print_rewards()
     logger.print_states()
     print(f"Non-timeout terminations: {stats['falls']}")
-    return stats
+    return {"stats": stats, "env": env, "policy": policy, "obs": obs,
+            "export_dir": out_dir, "rollout_s": rollout_s}
 
 
 if __name__ == "__main__":

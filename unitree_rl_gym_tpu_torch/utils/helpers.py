@@ -1,7 +1,8 @@
 """CLI args, seeding and checkpoint discovery (counterpart of
 ``unitree_rl_gym_tpu/utils/helpers.py``). ``--device`` picks the torch device
 (CUDA by default); ``--dist_backend`` the backend of a torchrun launch;
-``--load_flat`` points play at a flat-weight policy directory.
+``--load_flat`` points play at a flat-weight policy directory and
+``--view`` opens play's MuJoCo viewer.
 ``--num_envs`` is the global env count, whatever the number of ranks."""
 
 from __future__ import annotations
@@ -28,8 +29,12 @@ def set_seed(seed: Optional[int]):
 
 
 def get_load_path(root, load_run=-1, checkpoint=-1):
-    """Latest-run / latest-checkpoint discovery (helpers.py:73-95) over the
-    port's ``model_<it>.pt`` files."""
+    """Latest-run / latest-checkpoint discovery (helpers.py:73-95) over
+    ``model_<it>.pt`` (the port's) and ``model_<it>.ckpt`` (the JAX
+    package's; both keep their runs under ``logs/<experiment_name>/``): the
+    newest iteration of either suffix, the port's file where an iteration
+    has both. Raises ``ValueError`` naming the directory that holds no
+    such checkpoint."""
     try:
         runs = sorted(os.listdir(root))
         if "exported" in runs:
@@ -38,14 +43,16 @@ def get_load_path(root, load_run=-1, checkpoint=-1):
     except (OSError, IndexError):
         raise ValueError("No runs in this directory: " + root) from None
     load_run = last_run if load_run == -1 else os.path.join(root, str(load_run))
-    if checkpoint == -1:
-        models = [f for f in os.listdir(load_run)
-                  if f.startswith("model_") and f.endswith(".pt")]
-        models.sort(key=lambda m: int(m.split("_")[1].split(".")[0]))
-        model = models[-1]
-    else:
-        model = f"model_{checkpoint}.pt"
-    return os.path.join(load_run, model)
+    models = [f for f in os.listdir(load_run)
+              if f.startswith("model_") and f.endswith((".pt", ".ckpt"))]
+    if checkpoint != -1:
+        models = [f for f in models if f.split("_")[1].split(".")[0] == str(checkpoint)]
+    if not models:
+        which = "" if checkpoint == -1 else f"_{checkpoint}"
+        raise ValueError(f"No model{which}.pt or model{which}.ckpt checkpoint in "
+                         f"this directory: {load_run}")
+    models.sort(key=lambda m: (int(m.split("_")[1].split(".")[0]), m.endswith(".pt")))
+    return os.path.join(load_run, models[-1])
 
 
 def update_cfg_from_args(env_cfg, train_cfg, args):
@@ -89,6 +96,10 @@ def get_args(argv=None):
         "--load_flat", type=str, default=None,
         help="directory with policy_flat.npz + policy_meta.json "
              "(default: resources/pre_train/<task>)",
+    )
+    p.add_argument(
+        "--view", action="store_true", default=False,
+        help="play: replay env 0 in a MuJoCo viewer (needs mujoco and a display)",
     )
     p.add_argument(
         "--device", type=str, default="cuda",
