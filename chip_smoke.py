@@ -11,8 +11,10 @@ terrain curriculum through ``OnPolicyRunner.learn`` (kernel K3), the
 go2 handstand robustness fine-tune from the shipped policy with contact
 stiffness, friction, push, PD-gain and actuation-delay DR and PPO's
 nan guard, anchor KL and class weights (kernel K2), env data-parallel
-go2 training over 2 torch.distributed ranks (kernel K4: each rank's launch
-of its K1, K3 or K2 instance on its 2048-env block), and the humanoids
+go2 and g1 (LSTM, recurrent PPO) training over 2 torch.distributed ranks
+(kernel K4: each rank's launch of its K1, K3 or K2 instance on its
+2048-env block, at go2's, the handstand's and the humanoids' sizes), and
+the dryrun's g1-terrain-LSTM class on the ranks, and the humanoids
 g1, h1 and h1_2 with their LSTM actor-critics: play of the shipped
 policies and g1 training with recurrent PPO (K1 and K3 at the humanoids'
 sizes), and play's resume-and-export of go2 and g1 with the exported
@@ -110,8 +112,11 @@ of a one-process launch, bit for bit):
               spawned (``parallel.mesh.spawn_ranks``), over gloo, named
               explicitly (NCCL refuses two ranks on one device); the
               one-process runs happen in this process first:
- 17. dp_kernel  K1 on a go2 reset, K3 on a go2_terrain reset and K2 on the
-              fine-tune's DR reset, each launched once over all 4096 envs
+ 17. dp_kernel  K1 on a go2 reset, K3 on a go2_terrain reset, K2 on the
+              fine-tune's DR reset, and each humanoid instance of
+              HUMANOID_INSTANCES (K1 at g1's, h1's and h1_2's sizes, K3 at
+              g1's and h1_2's) on its phase-21 env's reset, each with a
+              seeded random action's target, each launched once over all 4096 envs
               here and then by each rank on its 2048-env block through
               ``backend.control_step(..., block=)`` (K4): each rank holds
               its K4 outputs against the plain version on its block, with
@@ -152,7 +157,27 @@ of a one-process launch, bit for bit):
               back bit for bit, the ranks end bit-identical;
  20. dp_terrain go2_terrain as 2 ranks x 2048, one warm-up + 2 iterations:
               K4 over K3 with each rank's gh carry and window refresh;
-              counts and finiteness as in dp_train.
+              counts and finiteness as in dp_train;
+ 27. dp_train_g1 (in the same ranks, after 20) g1 flat with the LSTM
+              actor-critic and recurrent PPO (bf16) as 2 ranks x 2048: one
+              warm-up + DP_G1_ITERS counted + one profiled iteration, each
+              rank's K4 (K1 at g1's sizes) launched 24 times per iteration
+              and K1, K3 and K2 never, every metric finite, lr in [1e-5,
+              1e-2]; iteration, rollout and update ms, the all-reduce ms
+              per minibatch, device busy ms and idle share; the ranks end
+              bit-identical, and every rank loads rank 0's last checkpoint
+              back to its own state bit for bit;
+ 28. dp_dryrun_g1 (in the same ranks) ``parallel/dryrun.py``'s
+              g1-terrain-lstm class (g1 on a 2 x 2 heightfield, the LSTM, 4
+              envs a rank, one iteration; the dryrun checks the replicas):
+              each rank's K4 (K3 at g1's sizes) launched DRYRUN_G1_LAUNCHES
+              times and nothing else, losses finite, lr in bounds; then K4 on
+              each rank's DRYRUN_ENVS_PER_RANK-env block of the class's env
+              (the reset state, a seeded random action) against the plain
+              version on the block and bit for bit against its rows of one
+              launch over all the class's envs, timed with the plain
+              version; the kernels line's entry for this instance gives
+              those blocks' ms, error and bound.
  21-24. the humanoids (``humanoid_phases``), each instance of
               HUMANOID_INSTANCES (K1 at g1's, h1's and h1_2's sizes, K3 at
               g1's and h1_2's on bench.py's heightfield with the curriculum):
@@ -233,6 +258,9 @@ DP_WORLD = 2             # ranks of the data-parallel phases, on one card
 DP_TRAIN_ITERS = 5       # counted data-parallel flagship iterations
 DP_TERRAIN_ITERS = 2     # counted data-parallel go2_terrain iterations
 DP_PARITY_ATOL = 1e-4    # 1 rank vs 2 ranks after one float32 iteration
+DP_G1_ITERS = 3          # counted data-parallel g1 iterations (LSTM, recurrent PPO)
+DRYRUN_G1_LAUNCHES = 5   # the dryrun's g1 class: reset_all's step + a 4-step rollout
+DRYRUN_ENVS_PER_RANK = 4  # the dryrun's envs a rank (parallel/dryrun.py)
 HUMANOID_WALK_STEPS = 100     # LSTM policy steps before the second flat comparison
 HUMANOID_TERRAIN_STEPS = 24   # ... before the second terrain comparison
 PLAY_HUMANOID_STEPS = 400     # steps of each pretrained humanoid's play
@@ -1042,16 +1070,19 @@ def hold_in_float64(net):
     always. The env, the physics and the rollout stay float32, but the
     update's sums over samples carry no float32 rounding, which depends on
     how the samples are split over ranks (Adam's first step turns the sign
-    of a gradient entry that sits within that rounding of zero into ~lr)."""
+    of a gradient entry that sits within that rounding of zero into ~lr).
+    A recurrent net's memories compute in float64 too; its carry stays
+    float32, as always."""
     import torch
 
     class Float64Policy(type(net)):
-        def _head(self, seq, x):
-            return seq(x.to(torch.float64)).to(torch.float32)
+        _compute_dtype = torch.float64
 
-        def forward(self, obs, critic_obs=None):
-            mu, std, value = super().forward(obs, critic_obs)
-            return mu, std.to(torch.float32), value
+        def forward(self, *args, **kwargs):
+            # std is expanded before the cast: its gradient sums over
+            # samples in float64
+            mu, std, *rest = super().forward(*args, **kwargs)
+            return (mu, std.to(torch.float32), *rest)
 
     net.double()
     net.__class__ = Float64Policy
@@ -1079,6 +1110,19 @@ def dp_runner(block, dev, terrain=False, dtype=None, log_dir=None,
     if float64:
         hold_in_float64(runner.net)
     return runner
+
+
+def g1_dp_runner(block, dev, log_dir=None):
+    """A runner of g1 flat (``scripts/train.py --task=g1``'s cfgs: the LSTM
+    actor-critic, recurrent PPO, bf16 compute) at N_ENVS global envs on
+    ``block``, from the train cfg's seed."""
+    from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+    from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
+
+    cfg, tcfg = task_registry.get_cfgs("g1")
+    cfg.env.num_envs = N_ENVS
+    env, _ = task_registry.make_env("g1", env_cfg=cfg, device=dev, block=block)
+    return OnPolicyRunner(env, tcfg, log_dir)
 
 
 def flat_grad(net):
@@ -1268,40 +1312,68 @@ def dp_train_run(runner, torch, iters, name, expect):
 
 
 def kernel_inputs(torch, dev):
-    """dp_kernel's three cases at N_ENVS envs: {name: {"args": the control
-    step's model and constants, "m_eff": ..., "inputs": tensors on the card
-    (the reset state, a seeded random action's target, gh, cstiff)}}."""
+    """dp_kernel's cases at N_ENVS envs: K1, K3 and K2 at go2's and the
+    handstand's sizes, then each humanoid instance (HUMANOID_INSTANCES: K1
+    at g1's, h1's and h1_2's sizes, K3 at g1's and h1_2's, on the envs of
+    phases 21-22); {name: {"args": the control step's model and constants,
+    "m_eff": ..., "inputs": tensors on the card (the reset state, a seeded
+    random action's target, gh, cstiff)}}."""
     from unitree_rl_gym_tpu_torch.envs.registry import task_registry
 
     cases = {}
     gen = torch.Generator(device=dev).manual_seed(0)
-    for name in ("K1", "K3", "K2"):
-        if name == "K2":
+    humanoids = {name: (task, terrain)
+                 for name, task, terrain, _ in HUMANOID_INSTANCES}
+    for name in ("K1", "K3", "K2") + tuple(humanoids):
+        if name in humanoids:
+            env = humanoid_env(*humanoids[name], dev)
+        elif name == "K2":
             cfg, _ = finetune_cfgs(task_registry, N_ENVS)
-            task = "go2_handstand"
+            env, _ = task_registry.make_env("go2_handstand", env_cfg=cfg, device=dev)
         else:
             cfg, _ = task_registry.get_cfgs("go2")
             cfg.env.num_envs = N_ENVS
-            task = "go2"
             if name == "K3":
                 cfg.terrain.mesh_type = "heightfield"
                 cfg.terrain.curriculum = True
-        env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
-        state, _ = env.reset_all()
-        actions = 0.3 * torch.randn((N_ENVS, env.num_actions), generator=gen,
-                                    device=dev)
-        x = {k: getattr(state.phys, k) for k in ("base_pos", "base_quat",
-                                                 "joint_q", "v")}
-        x.update(target=env._compute_target(actions), friction=state.friction,
-                 mass_scale=state.mass_scale)
-        if name == "K3":
-            x["gh"] = state.gh
-        if name == "K2":
-            x["cstiff"] = state.cstiff
-        cases[name] = {"args": (env.robot.dyn, env.cparams, env.pd, env.cfg.sim.dt,
-                                env.cfg.control.decimation),
-                       "m_eff": (env.m_eff_n, env.m_eff_t), "inputs": x}
+            env, _ = task_registry.make_env("go2", env_cfg=cfg, device=dev)
+        cases[name] = env_case(torch, env, gen, cstiff=name == "K2")
     return cases
+
+
+def env_case(torch, env, gen, cstiff=False):
+    """A kernel case of ``env`` (one process over all its envs): the
+    control step's model and constants, ``m_eff``, and as inputs the reset
+    state with a seeded random action's target (from ``gen``), its ``gh``
+    on terrain and, with ``cstiff``, its contact stiffness."""
+    state, _ = env.reset_all()
+    actions = 0.3 * torch.randn((env.num_envs, env.num_actions), generator=gen,
+                                device=gen.device)
+    x = {k: getattr(state.phys, k) for k in ("base_pos", "base_quat",
+                                             "joint_q", "v")}
+    x.update(target=env._compute_target(actions), friction=state.friction,
+             mass_scale=state.mass_scale)
+    if state.gh is not None:
+        x["gh"] = state.gh
+    if cstiff:
+        x["cstiff"] = state.cstiff
+    return {"args": (env.robot.dyn, env.cparams, env.pd, env.cfg.sim.dt,
+                     env.cfg.control.decimation),
+            "m_eff": (env.m_eff_n, env.m_eff_t), "inputs": x}
+
+
+def instance_bound(case, n, terrain, cs=False):
+    """{"bound_ms", "ops_ms", "bytes_ms"} of one control step of a kernel
+    case over ``n`` envs on the H100's published peaks."""
+    from unitree_rl_gym_tpu_torch.physics import backend as pb
+    from unitree_rl_gym_tpu_torch.physics import cuda_step
+
+    mm = pb.soa_model_for(case["args"][0])
+    kw = {"terrain": terrain, "cs": cs}
+    ops = n * cuda_step.flops_per_env(
+        mm, case["args"][4], case["args"][1].iterations, **kw) / PEAK_FP32_FLOPS * 1e3
+    nb = n * cuda_step.bytes_per_env(mm, **kw) / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops, nb), "ops_ms": ops, "bytes_ms": nb}
 
 
 def kernel_step(case, x, block=None, plain=False):
@@ -1325,10 +1397,24 @@ def kernel_step(case, x, block=None, plain=False):
     return flat_outputs(s, aux)
 
 
+def plain_ms(torch, case, x):
+    """The plain version's device ms per control step of a kernel case on
+    inputs ``x``."""
+    from unitree_rl_gym_tpu_torch.physics import backend as pb
+    from unitree_rl_gym_tpu_torch.physics import engine as eng
+
+    phys = eng.PhysicsState(**{k: x[k] for k in ("base_pos", "base_quat",
+                                                  "joint_q", "v")})
+    return cuda_ms(torch, lambda: pb.control_step_soa(
+        *case["args"], phys, x["target"], x["friction"], x["mass_scale"],
+        *case["m_eff"], gh=x.get("gh")), TIME_PLAIN, 1)
+
+
 def dp_rank(out_dir):
-    """One rank of phases 17-20 (started by ``parallel.mesh.spawn_ranks``):
-    its K4 launches and times, its float32 iteration, the flagship's and
-    go2_terrain's training on its block; writes ``<out_dir>/rank<r>.pt``."""
+    """One rank of phases 17-20, 27 and 28 (started by
+    ``parallel.mesh.spawn_ranks``): its K4 launches and times, its float32
+    iteration, the flagship's, go2_terrain's and g1's training on its
+    block, and the dryrun's g1 class; writes ``<out_dir>/rank<r>.pt``."""
     import torch
     import torch.distributed as dist
 
@@ -1408,19 +1494,95 @@ def dp_rank(out_dir):
     res["terrain"] = dp_train_run(runner, torch, DP_TERRAIN_ITERS, "dp_terrain",
                                   {"k4": 1})
     res["terrain"]["state"] = replica_state(runner).cpu()
+    del runner
+
+    # ---- 27. g1 flat, the LSTM and recurrent PPO: rank 0 writes the
+    #      checkpoints, every rank loads the last one back ----
+    ckpt_dir = os.path.join(out_dir, "ckpt_g1")
+    runner = g1_dp_runner(block, dev, log_dir=ckpt_dir)
+    rec = dp_train_run(runner, torch, DP_G1_ITERS, "dp_train_g1", {"k4": 1})
+    state = replica_state(runner)
+    dist.barrier()
+    fresh = g1_dp_runner(block, dev)
+    fresh.load(os.path.join(ckpt_dir, f"model_{runner.current_learning_iteration}.pt"))
+    rec.update(state=state.cpu(), iteration=runner.current_learning_iteration,
+               checkpoint_loads_back=bool(torch.equal(replica_state(fresh), state)))
+    res["train_g1"] = rec
+    del runner, fresh
+
+    # ---- 28. the dryrun's g1-terrain-LSTM class (K3's instance at g1's
+    #      sizes as each rank's K4) ----
+    from unitree_rl_gym_tpu_torch.parallel import dryrun
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.time()
+    row = dryrun.dryrun_class("g1-terrain-lstm", dev, DRYRUN_ENVS_PER_RANK)
+    torch.cuda.synchronize()
+    res["dryrun_g1"] = {"launches": launch_counts(), "row": row,
+                        "seconds": time.time() - t0}
+    res["dryrun_g1"]["kernel"] = dryrun_kernel(torch, dist, dev)
     torch.save(res, os.path.join(out_dir, f"rank{block.rank}.pt"))
 
 
+def dryrun_kernel(torch, dist, dev):
+    """K4 as the dryrun's g1-terrain-lstm class launches it: K3's instance
+    at g1's sizes on this rank's DRYRUN_ENVS_PER_RANK-env block of the
+    class's env (its cfgs, one process over all the class's envs: the
+    reset state and a seeded random action's target). Held against the
+    plain version on the block (``compare``) and bit for bit against its
+    rows of one launch over all the class's envs; timed one rank at a
+    time, with the plain version's ms and the bound on the block."""
+    from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+    from unitree_rl_gym_tpu_torch.parallel import dryrun
+    from unitree_rl_gym_tpu_torch.parallel import mesh as pmesh
+
+    world = dist.get_world_size()
+    task, cfg, _ = dryrun.class_cfgs("g1-terrain-lstm", DRYRUN_ENVS_PER_RANK * world)
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+    case = env_case(torch, env, torch.Generator(device=dev).manual_seed(0))
+    del env
+    blk = pmesh.env_block(cfg.env.num_envs)
+    whole = kernel_step(case, case["inputs"])
+    x = pmesh.shard_env_state(case["inputs"], blk)
+    zero_launch_counts()
+    out = kernel_step(case, x, blk)
+    torch.cuda.synchronize()
+    check(launch_counts()["k4"] == 1,
+          f"rank {blk.rank}: the dryrun's K3 g1 block not launched as K4")
+    differ = [k for k, v in out.items() if not torch.equal(
+        v, whole[k][:, blk.offset:blk.offset + blk.n_local] if k == "p_xy"
+        else whole[k][blk.offset:blk.offset + blk.n_local])]
+    check(not differ, f"dp_dryrun_g1: rank {blk.rank}'s K4 differs from its rows "
+                      f"of the {cfg.env.num_envs}-env launch in {differ}")
+    ref = kernel_step(case, x, plain=True)
+    s_err, a_err, n_excused, per_output, _ = compare(
+        ref, out, ref["min_abs_phi"], torch,
+        name=f"K4 (the dryrun's K3 g1) on rank {blk.rank}")
+    ms = p_ms = None
+    for r in range(world):
+        dist.barrier()
+        if r == blk.rank:
+            ms = cuda_ms(torch, lambda: kernel_step(case, x, blk), TIME_LAUNCHES, 3)
+            p_ms = plain_ms(torch, case, x)
+    dist.barrier()
+    return {"n_local": blk.n_local, "rows_bit_identical": True,
+            "max_abs_err_state": s_err, "max_err_aux_normalised": a_err,
+            "excused_contact_edge_envs": n_excused,
+            "max_errors_by_output": per_output, "ms": ms, "plain_ms": p_ms,
+            **instance_bound(case, blk.n_local, terrain=True)}
+
+
 def dp_phases(torch, dev, t_start):
-    """Phases 17-20: the one-process parts here, the ranks' in DP_WORLD
-    spawned processes sharing the card over gloo; returns K4's entry of the
-    kernels line."""
+    """Phases 17-20, 27 and 28: the one-process parts here, the ranks' in
+    DP_WORLD spawned processes sharing the card over gloo; returns K4's
+    entries of the kernels line (its instances on the flagship's path, at
+    g1's sizes in dp_train_g1 and in dp_dryrun_g1's terrain)."""
     import tempfile
 
     from unitree_rl_gym_tpu_torch.parallel import mesh as pmesh
     from unitree_rl_gym_tpu_torch.physics import backend as pb
     from unitree_rl_gym_tpu_torch.physics import cuda_step
-    from unitree_rl_gym_tpu_torch.physics import engine as eng
     from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
 
     t0 = time.time()
@@ -1437,31 +1599,30 @@ def dp_phases(torch, dev, t_start):
                                  TIME_LAUNCHES, 3)
     blk0 = pmesh.env_block(N_ENVS, 0, DP_WORLD)
     k1 = cases["K1"]
-    x0 = pmesh.shard_env_state(k1["inputs"], blk0)
-    phys0 = {k: x0[k] for k in ("base_pos", "base_quat", "joint_q", "v")}
-    plain_block_ms = cuda_ms(torch, lambda: pb.control_step_soa(
-        *k1["args"], eng.PhysicsState(**phys0), x0["target"], x0["friction"],
-        x0["mass_scale"], *k1["m_eff"]), TIME_PLAIN, 1)
+
+    # the plain version's ms on rank 0's block of the flagship's instance,
+    # and of the two the g1 paths run (27; 28 at its own block size)
+    plain_block_ms = {
+        name: plain_ms(torch, cases[name],
+                       pmesh.shard_env_state(cases[name]["inputs"], blk0))
+        for name in ("K1", "K1 g1", "K3 g1")}
     torch.save({n: dict(c, inputs={k: v.cpu() for k, v in c["inputs"].items()})
                 for n, c in cases.items()}, os.path.join(out_dir, "kernel_cases.pt"))
     m = pb.soa_model_for(k1["args"][0])
-    ptxas = {"K1": instance_ptxas(cuda_step, m, "control_step", "K1"),
-             "K3": instance_ptxas(cuda_step, m, "control_step", "K3"),
-             "K2": instance_ptxas(cuda_step, pb.soa_model_for(cases["K2"]["args"][0]),
-                                  "control_step_cs", "K2 flat")}
+    ptxas = {name: instance_ptxas(
+        cuda_step, pb.soa_model_for(case["args"][0]),
+        "control_step_cs" if name == "K2" else "control_step",
+        "K2 flat" if name == "K2" else name.split()[0])
+        for name, case in cases.items()}
     # each instance's bound at a rank's block: K1 and K3 at go2's sizes,
-    # K2 at the fine-tune's (79 points, decimation 5)
+    # K2 at the fine-tune's (79 points, decimation 5), the humanoid
+    # instances at their robots'
     n_local = N_ENVS // DP_WORLD
-    bound_by_instance = {}
-    for name, case in cases.items():
-        mm = pb.soa_model_for(case["args"][0])
-        kw = {"terrain": name == "K3", "cs": name == "K2"}
-        ops = n_local * cuda_step.flops_per_env(
-            mm, case["args"][4], case["args"][1].iterations, **kw) / PEAK_FP32_FLOPS * 1e3
-        nb = n_local * cuda_step.bytes_per_env(mm, **kw) / PEAK_BYTES_PER_S * 1e3
-        bound_by_instance[name] = {"bound_ms": max(ops, nb), "ops_ms": ops, "bytes_ms": nb}
+    bound_by_instance = {
+        name: instance_bound(case, n_local, name.startswith("K3"), name == "K2")
+        for name, case in cases.items()}
     decimation, iterations = k1["args"][4], k1["args"][1].iterations
-    del cases, x0, phys0
+    del cases
     t_kernel_prep = time.time() - t0
 
     # ---- 18 (one process): one iteration over all envs, both ways; the
@@ -1534,7 +1695,7 @@ def dp_phases(torch, dev, t_start):
           "n_local": N_ENVS // DP_WORLD, "backend": "gloo", "bit_identical": True,
           "max_abs_err_vs_one_process_rows": max_err,
           "max_abs_err_state_vs_plain": plain_err, "kernels": kernel_rec,
-          "plain_ms_block_k1": plain_block_ms, "ptxas_by_instance": ptxas,
+          "plain_ms_block": plain_block_ms, "ptxas_by_instance": ptxas,
           "bound_ms_by_instance_per_rank": bound_by_instance,
           "seconds_one_process": t_kernel_prep})
 
@@ -1619,13 +1780,75 @@ def dp_phases(torch, dev, t_start):
     emit({"phase": "dp_terrain", "config": "go2_terrain", "n_global": N_ENVS,
           "per_rank": [{k: v for k, v in r.items() if k != "state"} for r in te],
           "ranks_bit_identical": True, "seconds": time.time() - t0})
+
+    # ---- 27. g1 flat with the LSTM on 2 ranks: the replicas identical,
+    #      the last checkpoint (rank 0's) loaded back bit for bit on every
+    #      rank; dp_train_run held the launches, losses and lr ----
+    tg = [r["train_g1"] for r in ranks]
+    for r in tg[1:]:
+        check(torch.equal(r["state"], tg[0]["state"]),
+              "dp_train_g1: the ranks' params, Adam state or lr differ")
+    for rank, r in enumerate(tg):
+        check(r["checkpoint_loads_back"],
+              f"dp_train_g1: rank {rank} does not load model_{r['iteration']}.pt "
+              "back to its own state")
+    emit({"phase": "dp_train_g1",
+          "config": "g1 flat (scripts/train.py --task=g1): LSTM actor-critic, "
+                    "recurrent PPO, bf16",
+          "n_global": N_ENVS, "backend": "gloo", "world": DP_WORLD,
+          "per_rank": [{k: v for k, v in r.items() if k != "state"} for r in tg],
+          "ranks_bit_identical": True, "checkpoint_loads_back_every_rank": True})
+
+    # ---- 28. the dryrun's g1-terrain-LSTM class ----
+    dg = [r["dryrun_g1"] for r in ranks]
+    for rank, r in enumerate(dg):
+        want = {k: DRYRUN_G1_LAUNCHES if k == "k4" else 0 for k in r["launches"]}
+        check(r["launches"] == want,
+              f"dp_dryrun_g1: rank {rank} launched {r['launches']}, expected {want}")
+        check(all(math.isfinite(float(r["row"][k]))
+                  for k in ("value_loss", "surrogate_loss", "kl")),
+              f"dp_dryrun_g1: rank {rank}: non-finite losses {r['row']}")
+        check(LR_MIN <= r["row"]["lr"] <= LR_MAX, f"dp_dryrun_g1: lr {r['row']['lr']}")
+    emit({"phase": "dp_dryrun_g1",
+          "config": "parallel/dryrun.py's g1-terrain-lstm class: g1 on a 2 x 2 "
+                    "heightfield of 4 m, terrain curriculum, LSTM, "
+                    f"{DRYRUN_ENVS_PER_RANK} envs a rank, T 4, 2 epochs x 2 "
+                    "minibatches",
+          "per_rank": dg, "replicas_checked_by_the_dryrun": True,
+          "k4_block_vs_plain_and_rows": True})
     tmp.cleanup()
+
+    def entry(name, instance, launches_by_rank, path, by_rank, p_ms, b, n):
+        """A K4 entry of the kernels line for one instance on ``n``-env
+        blocks: each rank's error against the plain version and ms there
+        (``by_rank``), the plain version's ms and the bound on a block."""
+        return {
+            "name": name, "route": "cuda",
+            "source": "unitree_rl_gym_tpu_torch/csrc/control_step.cu",
+            "replaces": "unitree_rl_gym_tpu/physics/pallas_step.py:315",
+            "replaces_function": "pallas_step.control_step_pallas_sharded "
+                                 f"(each rank's {instance} instance on its "
+                                 f"{n}-env block; {path})",
+            "launches": sum(launches_by_rank),
+            "launches_per_rank": launches_by_rank,
+            "max_abs_err": max(r["max_abs_err_state"] for r in by_rank),
+            "ms": by_rank[0]["ms"],
+            "ms_per_rank": [r["ms"] for r in by_rank],
+            "plain_ms": p_ms,
+            "bound_ms": b["bound_ms"],
+            "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
+            "library_ms": None,
+        }
+
+    g1_by_rank = [dict(v, ms=ms) for v, ms in zip(
+        kernel_rec["K1 g1"]["vs_plain_by_rank"], kernel_rec["K1 g1"]["rank_ms_2048"])]
+    dk = [r["kernel"] for r in dg]
 
     flops = cuda_step.flops_per_env(m, decimation, iterations)
     nbytes = cuda_step.bytes_per_env(m)
     t_ops = n_local * flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = n_local * nbytes / PEAK_BYTES_PER_S * 1e3
-    return {
+    return [{
         "name": "control_step_sharded",
         "route": "cuda",
         "source": "unitree_rl_gym_tpu_torch/csrc/control_step.cu",
@@ -1640,12 +1863,19 @@ def dp_phases(torch, dev, t_start):
         "ms": kernel_rec["K1"]["rank_ms_2048"][0],
         "ms_per_rank": kernel_rec["K1"]["rank_ms_2048"],
         "ms_by_instance_per_rank": {k: v["rank_ms_2048"] for k, v in kernel_rec.items()},
-        "plain_ms": plain_block_ms,
+        "plain_ms": plain_block_ms["K1"],
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bound_ms_by_instance_per_rank": bound_by_instance,
         "library_ms": None,
-    }
+    }, entry("control_step_sharded_g1", "K1 g1",
+             [r["launches"]["k4"] for r in tg],
+             f"dp_train_g1's {DP_G1_ITERS} counted iterations", g1_by_rank,
+             plain_block_ms["K1 g1"], bound_by_instance["K1 g1"], n_local),
+        entry("control_step_sharded_g1_terrain", "K3 g1",
+              [r["launches"]["k4"] for r in dg], "dp_dryrun_g1's g1-terrain-lstm "
+              "class; held on its own blocks", dk, dk[0]["plain_ms"], dk[0],
+              dk[0]["n_local"])]
 
 
 # ---------------------------------------------------------------------------
@@ -2268,8 +2498,9 @@ def main():
     # ---- 11-16. the handstand robustness fine-tune (K2) ----
     k2_entry = handstand_phases(torch, dev, libs, build_s)
 
-    # ---- 17-20. env data parallelism over 2 ranks (K4) ----
-    k4_entry = dp_phases(torch, dev, t_start)
+    # ---- 17-20, 27-28. env data parallelism over 2 ranks (K4): go2, then
+    #      g1 with the LSTM (training, and the dryrun's terrain class) ----
+    k4_entries = dp_phases(torch, dev, t_start)
 
     # ---- 21-24. the humanoids with their LSTM policies (K1, K3) ----
     humanoid_entries = humanoid_phases(torch, dev, n_sm)
@@ -2300,7 +2531,7 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-    }, k3_entry, k2_entry, k4_entry, *humanoid_entries]})
+    }, k3_entry, k2_entry, *k4_entries, *humanoid_entries]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

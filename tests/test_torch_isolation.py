@@ -97,8 +97,8 @@ def test_parallel_ranks_run_without_jax(tmp_path):
     """The multi-rank path (``parallel/``, and the rank entry that
     ``mesh.spawn_ranks`` starts in fresh interpreters) imports no jax: a
     ``sitecustomize`` that refuses the JAX packages is on the path of the
-    parent and of both spawned ranks, which run the 2-rank dryrun on the
-    CPU."""
+    parent and of both spawned ranks, which run the 2-rank dryrun's two
+    classes on the CPU."""
     refuse = SCRIPT[:SCRIPT.index("import torch")]
     (tmp_path / "sitecustomize.py").write_text(refuse)
     res = subprocess.run(
@@ -110,6 +110,7 @@ def test_parallel_ranks_run_without_jax(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-4000:]
     assert "go2-flat-mlp: n_devices=2 num_envs=8 OK" in res.stdout
+    assert "g1-terrain-lstm: n_devices=2 num_envs=8 OK" in res.stdout
 
 
 def test_dryrun_defaults_to_the_card(monkeypatch):

@@ -108,8 +108,13 @@ class _GaussianPolicy(nn.Module):
             torch.full((num_actions,), float(np.log(init_noise_std)))
         )
 
+    @property
+    def _compute_dtype(self):
+        """The torch dtype the heads and memories compute in."""
+        return _DTYPES[self.dtype]
+
     def _head(self, seq, x):
-        return seq(x.to(_DTYPES[self.dtype])).to(torch.float32)
+        return seq(x.to(self._compute_dtype)).to(torch.float32)
 
     def inference_copy(self):
         """A float32 copy in eval mode (inference and export are float32;
@@ -219,7 +224,7 @@ class ActorCriticRecurrent(_GaussianPolicy):
         critic_obs = obs if critic_obs is None else critic_obs
         if carry is None:
             carry = self.initial_carry(obs.shape[0])
-        dt = _DTYPES[self.dtype]
+        dt = self._compute_dtype
         ha, carry_a = self.memory_a(obs, carry[0], dt)
         hc, carry_c = self.memory_c(critic_obs, carry[1], dt)
         mu = self._head(self.actor, ha)
@@ -228,7 +233,7 @@ class ActorCriticRecurrent(_GaussianPolicy):
         return mu, std, value, torch.stack((carry_a, carry_c))
 
     def act(self, obs, carry):
-        ha, carry_a = self.memory_a(obs, carry[0], _DTYPES[self.dtype])
+        ha, carry_a = self.memory_a(obs, carry[0], self._compute_dtype)
         return self._head(self.actor, ha), torch.stack((carry_a, carry[1]))
 
 

@@ -59,11 +59,20 @@ up to the order of floating-point sums.
     deviations (two passes, ddof 0);
   * the rollout's logging sums are reduced once per iteration.
 
+A recurrent net's update takes the same path over env columns: the
+permutation is of the N global envs, minibatch i holds the rank's columns
+of ``perm[i*mb:(i+1)*mb]`` (in the permutation's order) over all T steps,
+with their dones and their slice of the start carry, each rank replays the
+LSTM over its columns alone (a carry is per env), and the loss means are
+local sums over the global count ``T*mb``. A rank that holds none of a
+minibatch's envs replays nothing and still joins the all-reduce, with
+zero gradients and zero sums, so it takes the same decisions as the others
+and no rank waits alone in the collective.
+
 One process is the block of one rank (``block`` None gives it). Its draws
 and minibatches take the same path; it makes no collective, and takes the
 mean of the loss and the std of GAE as torch does, so every result is bit
-for bit the one-process result. A recurrent net trains on one rank only:
-across ranks it raises (ROADMAP module 11's remainder).
+for bit the one-process result.
 """
 
 from __future__ import annotations
@@ -134,10 +143,6 @@ class PPO:
         if self.block.n_local != num_envs:
             raise ValueError(f"{num_envs} envs on a block of {self.block.n_local}")
         self.recurrent = net.is_recurrent
-        if self.recurrent and self.block.world_size > 1:
-            raise NotImplementedError(
-                "recurrent PPO over more than one rank is not ported yet "
-                "(ROADMAP module 11's remainder)")
         self.num_envs_global = self.block.n_global
         # more than one rank: the cross-env sums are all-reduced
         self.distributed = self.block.world_size > 1
@@ -177,6 +182,12 @@ class PPO:
             return self.net(obs, critic_obs, carry)
         return self.net(obs, critic_obs) + (None,)
 
+    def _action_noise(self, t, shape):
+        """Step ``t``'s standard normal action noise over the N global envs
+        (``shape`` [N_global, ...]), from the PPO generator; the rollout
+        takes its block's rows."""
+        return torch.randn(shape, generator=self.gen, device=self.device)
+
     @torch.no_grad()
     def rollout(self, env, env_state, obs, critic_obs, carry=None):
         """Collect ``num_steps`` transitions. Returns (env_state, obs,
@@ -203,9 +214,8 @@ class PPO:
                 env_state = env.refresh_terrain(env_state)
             mu, std, value, carry = self._forward(
                 obs, None if self.share_critic_obs else critic_obs, carry)
-            eps = self.block.rows(torch.randn(
-                (self.num_envs_global,) + mu.shape[1:], generator=self.gen,
-                device=dev))
+            eps = self.block.rows(self._action_noise(
+                t, (self.num_envs_global,) + mu.shape[1:]))
             actions = mu + std * eps
             logp = nets.log_prob(mu, std, actions)
             env_state, next_obs, next_priv, rew, done, extras = env.step(

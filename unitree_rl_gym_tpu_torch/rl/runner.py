@@ -26,8 +26,9 @@ Env data parallelism: with an env that holds one rank's block of the envs
 its block; the network is built from the same seed on every rank and then
 broadcast from rank 0 once, PPO keeps the replicas identical (``rl/ppo.py``),
 rank 0 alone prints and writes ``model_<it>.pt``, its meta and
-``curves.json``, and every rank loads a checkpoint. The throughput counts
-the steps of all ranks' envs.
+``curves.json``, and every rank loads a checkpoint. An LSTM policy's carry
+is the block's: each rank carries its own envs' from iteration to
+iteration. The throughput counts the steps of all ranks' envs.
 """
 
 from __future__ import annotations

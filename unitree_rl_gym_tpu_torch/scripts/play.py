@@ -85,7 +85,10 @@ def rollout(env, policy, state, obs, num_steps: int, settle: int, viewer=None):
     -> actions, or for an LSTM ``act(obs, carry)`` -> (actions, carry) and
     ``initial_carry(n)``; the carry starts at zero and runs through every
     step with no per-env reset, as the JAX package's play does. Tracking
-    errors and non-timeout terminations count after step ``settle``.
+    errors and non-timeout terminations count at the steps ``i > settle``
+    (the JAX play's settle-in window, ``i > NUM_STEPS // 5``), and the
+    mean errors are over the steps logged, also when a viewer ends the
+    loop early.
     ``viewer`` (``utils.viz.RolloutViewer``) shows each step and ends the
     loop when its window closes. Returns (state, obs, stats) with host
     numbers in ``stats``; without a viewer the loop never waits on the
@@ -97,6 +100,7 @@ def rollout(env, policy, state, obs, num_steps: int, settle: int, viewer=None):
     errs = torch.zeros(4, device=dev)       # |vx|, |vy|, |yaw rate| errors, height
     falls = torch.zeros((), dtype=torch.int64, device=dev)
     carry = policy.initial_carry(env.num_envs) if policy.is_recurrent else None
+    n_logged = 0
     for i in range(num_steps):
         if carry is None:
             actions = policy.act(obs)
@@ -107,7 +111,8 @@ def rollout(env, policy, state, obs, num_steps: int, settle: int, viewer=None):
             break
         ep_sums += extras["episode_sums_at_reset"]
         n_resets += extras["episode_reset_count"]
-        if i >= settle:
+        if i > settle:
+            n_logged += 1
             v, cmd = state.phys.v, state.commands
             errs += torch.stack((
                 (v[:, 3] - cmd[:, 0]).abs().mean(),
@@ -116,8 +121,7 @@ def rollout(env, policy, state, obs, num_steps: int, settle: int, viewer=None):
                 state.phys.base_pos[:, 2].mean(),
             ))
             falls += (done & ~extras["time_outs"]).sum()
-    n_logged = max(num_steps - settle, 1)
-    errs = (errs / n_logged).tolist()
+    errs = (errs / max(n_logged, 1)).tolist()
     stats = {
         "abs_vx_tracking_err": errs[0],
         "abs_vy_tracking_err": errs[1],

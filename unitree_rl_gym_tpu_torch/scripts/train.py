@@ -11,12 +11,15 @@ Env data parallelism over ranks (``parallel/mesh.py``)::
 
     python -m torch.distributed.run --nproc_per_node=2 \\
         -m unitree_rl_gym_tpu_torch.scripts.train --task=go2
+    python -m torch.distributed.run --nproc_per_node=2 \\
+        -m unitree_rl_gym_tpu_torch.scripts.train --task=g1 --dist_backend=gloo
 
 Under torchrun each rank joins the process group (``--dist_backend``,
 default: NCCL with a card per rank, gloo on the CPU, and an error for
 ranks that would share a card unless ``--dist_backend=gloo``), holds its
 block of the ``--num_envs`` global envs and trains one replica of the
-policy; rank 0 alone logs and writes the checkpoints.
+policy (an MLP, or the humanoids' LSTM with recurrent PPO); rank 0 alone
+logs and writes the checkpoints.
 """
 
 from unitree_rl_gym_tpu_torch import resolve_device

@@ -1,8 +1,10 @@
 """CLI args, seeding and checkpoint discovery (counterpart of
 ``unitree_rl_gym_tpu/utils/helpers.py``). ``--device`` picks the torch device
 (CUDA by default); ``--dist_backend`` the backend of a torchrun launch;
-``--load_flat`` points play at a flat-weight policy directory and
-``--view`` opens play's MuJoCo viewer.
+``--load_flat`` points play at a flat-weight policy directory,
+``--view`` opens play's MuJoCo viewer and ``--headless`` is accepted and
+does nothing, as in the JAX package (which, like legged_gym's CLI, takes
+it; nothing opens a viewer unless ``--view`` asks).
 ``--num_envs`` is the global env count, whatever the number of ranks."""
 
 from __future__ import annotations
@@ -89,6 +91,7 @@ def get_args(argv=None):
     p.add_argument("--run_name", type=str)
     p.add_argument("--load_run", type=str)
     p.add_argument("--checkpoint", type=int)
+    p.add_argument("--headless", action="store_true", default=False)
     p.add_argument("--num_envs", type=int)
     p.add_argument("--seed", type=int)
     p.add_argument("--max_iterations", type=int)
