@@ -18,7 +18,10 @@ the dryrun's g1-terrain-LSTM class on the ranks, and the humanoids
 g1, h1 and h1_2 with their LSTM actor-critics: play of the shipped
 policies and g1 training with recurrent PPO (K1 and K3 at the humanoids'
 sizes), and play's resume-and-export of go2 and g1 with the exported
-TorchScript policies driven through K1 — and holds every kernel of those paths against its plain PyTorch
+TorchScript policies driven through K1, and the tooling scripts
+(roofline with its FMA probe kernel, profile_train, profile_residue,
+make_pretrain) and a flagship iteration for each other activation — and
+holds every kernel of those paths against its plain PyTorch
 version on the same inputs (K4 on each rank's block, and against the rows
 of a one-process launch, bit for bit):
 
@@ -225,6 +228,34 @@ of a one-process launch, bit for bit):
               env 0's observations of 100 g1 steps through K1, within 1e-4
               of the float32 inference policy with its carry, and
               ``reset_memory()`` gives its first output again exactly.
+ 29-33. module 12's tooling and module 5's remainder (``tooling_phases``),
+              each through its script's functions, at 4096 go2 envs:
+ 29. roofline ``scripts/roofline.py``: the dispatch overhead, bf16 GEMM
+              (8192^2), the PPO update's thin bf16 chain, the fp32 FMA
+              probe (the hand-written ``csrc/roofline_fma.cu``, built in
+              phase 2) and HBM bandwidth; every rate finite and positive
+              and at most 1.05 x its H100 SXM data-sheet figure; the probe
+              within rtol 1e-4 of its plain version (the same chain in torch
+              ops), timed with it; every kernels-line bound restated at the
+              measured fp32 (or HBM) rate beside the data-sheet bound;
+ 30. profile_train  ``scripts/profile_train.py`` on the flagship: 3 timed
+              iterations, then 2 under torch.profiler with the counts zeroed
+              just before (K1 exactly 48 times, nothing else), the device
+              time by kernel name (top 25, share, total > 0);
+ 31. profile_residue  ``scripts/profile_residue.py``'s five programs (A
+              train iteration, B rollout, C env with zero actions, D C
+              without noise, E 24 control steps), each 1 + 3 calls with the
+              counts zeroed just before (K1 exactly 24 times a call, nothing
+              else), and the JAX script's JSON keys, every value finite;
+ 32. make_pretrain  ``scripts/make_pretrain.py``, 2 iterations, ``--out``
+              under a temporary directory: K1 1 + 48 times, the shipped
+              ``resources/pre_train/go2`` file names and meta keys,
+              ``policy.bin``'s header, ``NumpyPolicy`` on the written npz
+              within 1e-5 of the runner's policy on the final obs;
+ 33. activations  one flagship ``OnPolicyRunner`` iteration for each of
+              relu, selu, crelu, lrelu, tanh and sigmoid: K1 exactly 24
+              times each, every metric finite, lr in bounds; prints whether
+              the TensorBoard writer was present.
 
 Each phase prints one JSON line with its wall time. Any failure raises and
 the script exits non-zero; without CUDA it exits non-zero before printing a
@@ -239,6 +270,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 N_ENVS = 4096
@@ -276,6 +308,14 @@ EXPORT_MLP_ATOL = 1e-5        # policy_1.pt against the runner's float32 inferen
 EXPORT_LSTM_ATOL = 1e-4       # policy_lstm_1.pt against it, carry and all
 EXPORT_FALL_BAR = 0.01        # the slice phase's bar, after play's settling window
 # the humanoid instances the paths run: (name, task, terrain, artifact)
+ROOFLINE_MARGIN = 1.05        # no measured rate above 1.05 x its data-sheet figure
+FMA_RTOL = 1e-4               # the FMA probe against its plain version (which
+                              # rounds each of the 2048 rounds once, as fmaf)
+PROFILE_TRAIN_ITERS = 2       # profiled iterations of scripts/profile_train.py
+RESIDUE_ITERS = 3             # timed calls of each scripts/profile_residue.py program
+PRETRAIN_ITERS = 2            # iterations of scripts/make_pretrain.py
+PRETRAIN_ATOL = 1e-5          # NumpyPolicy on its npz against the runner's policy
+ACTIVATION_NAMES = ("relu", "selu", "crelu", "lrelu", "tanh", "sigmoid")
 HUMANOID_INSTANCES = (
     ("K1 g1", "g1", False, "g1"), ("K1 h1", "h1", False, "h1"),
     ("K1 h1_2", "h1_2", False, "h1_2"), ("K3 g1", "g1", True, "g1_terrain"),
@@ -461,66 +501,16 @@ def profile_train(runner, torch, iteration_ms, rollout_ms, update_ms,
                   kernel="k3_ms", rollout_range=("window_contraction_ms",
                                                  "terrain_window_contraction"),
                   update_range=None):
-    """Device time of one training iteration by part, from torch.profiler:
-    the control-step kernel by name (reported as ``kernel``) and kernels by
-    the profiler range they ran in (the rollout, the update, and the ranges
-    ``rollout_range`` / ``update_range`` (label, range name) inside them: a
-    kernel belongs to a range when it starts inside that range's span on
-    the device timeline). Idle shares are measured against the unprofiled
-    host times."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one more training iteration by part, from
+    torch.profiler (``scripts/profile_train.iteration_breakdown``: the
+    control-step kernel reported as ``kernel``, the rollout and update
+    ranges and ``rollout_range`` / ``update_range`` inside them, idle
+    shares against the unprofiled host times)."""
+    from unitree_rl_gym_tpu_torch.scripts import profile_train as ptrain
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.learn(1)
-        torch.cuda.synchronize()
-    spans, kernels = {}, []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if getattr(e, "is_user_annotation", False):
-            spans.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
-        else:
-            kernels.append((e.name, e.time_range.start, e.time_range.elapsed_us() / 1e3))
-    total = sum(k[2] for k in kernels)
-    if total == 0.0:
-        return {"device_ms_per_iteration": "not measured (the profiler saw no device time)"}
-
-    def in_range(name):
-        if name not in spans:
-            return "not measured (no device span for the range)"
-        return sum(ms for _, t, ms in kernels
-                   if any(a <= t < b for a, b in spans[name]))
-
-    by_name = {}
-    for name, _, ms in kernels:
-        by_name[name] = by_name.get(name, 0.0) + ms
-    step_kernel = sum(v for k, v in by_name.items() if "utrl_control_step" in k)
-    rollout, update = in_range("ppo_rollout"), in_range("ppo_update")
-    out = {
-        "device_ms_per_iteration": total,
-        kernel: step_kernel,
-        "rollout_device_ms": rollout,
-        "update_device_ms": update,
-        "gemm_kernels_ms": sum(v for k, v in by_name.items()
-                               if any(g in k.lower() for g in ("gemm", "xmma", "cutlass", "gemv"))),
-        "n_kernel_names": len(by_name),
-        "device_idle_share": max(0.0, 1.0 - total / iteration_ms),
-        "top_kernels_ms": [[k[:80], v] for k, v in
-                           sorted(by_name.items(), key=lambda kv: -kv[1])[:10]],
-    }
-    inner = {}
-    for part, rng in (("rollout", rollout_range), ("update", update_range)):
-        if rng is not None:
-            out[rng[0]] = inner[part] = in_range(rng[1])
-    if isinstance(rollout, float) and isinstance(inner.get("rollout", 0.0), float):
-        out["rollout_other_ms"] = rollout - step_kernel - inner.get("rollout", 0.0)
-        out["rollout_idle_share"] = max(0.0, 1.0 - rollout / rollout_ms)
-    if isinstance(update, float):
-        if isinstance(inner.get("update", 0.0), float) and update_range is not None:
-            out["update_other_ms"] = update - inner["update"]
-        out["update_idle_share"] = max(0.0, 1.0 - update / update_ms)
-    return out
+    prof = ptrain.profiled(lambda: runner.learn(1), runner.device)
+    return ptrain.iteration_breakdown(prof, iteration_ms, rollout_ms, update_ms,
+                                      kernel, rollout_range, update_range)
 
 
 def terrain_phases(torch, dev):
@@ -2130,37 +2120,15 @@ def humanoid_phases(torch, dev, n_sm):
 
 def profile_step(env, policy, play, torch, step_ms):
     """Device time per rollout step by kernel group, from torch.profiler
-    over PROFILE_STEPS steps; the idle share is measured against the
-    unprofiled ``step_ms`` of the slice phase."""
-    from torch.profiler import ProfilerActivity, profile
+    over PROFILE_STEPS steps (``scripts/profile_train.step_breakdown``); the
+    idle share is measured against the unprofiled ``step_ms`` of the slice
+    phase."""
+    from unitree_rl_gym_tpu_torch.scripts import profile_train as ptrain
 
     state, obs = env.reset_all()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        play.rollout(env, policy, state, obs, PROFILE_STEPS, settle=PROFILE_STEPS)
-        torch.cuda.synchronize()
-    kernels = {}   # kernel name -> device ms per step
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            ms = e.time_range.elapsed_us() / PROFILE_STEPS / 1e3
-            kernels[e.name] = kernels.get(e.name, 0.0) + ms
-    total = sum(kernels.values())
-    if total == 0.0:
-        return {"device_ms_per_step": "not measured (the profiler saw no device time)"}
-    k1 = sum(v for k, v in kernels.items() if "utrl_control_step" in k)
-    mm = sum(v for k, v in kernels.items()
-             if "gemm" in k.lower() or "xmma" in k.lower() or "cutlass" in k.lower())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    return {
-        "device_ms_per_step": total,
-        "k1_ms_per_step": k1,
-        "actor_matmul_ms_per_step": mm,
-        "other_kernels_ms_per_step": total - k1 - mm,
-        "n_kernel_names": len(kernels),
-        "device_idle_share": max(0.0, 1.0 - total / step_ms),
-        "top_kernels_ms_per_step": [[k[:80], v] for k, v in top],
-    }
+    prof = ptrain.profiled(lambda: play.rollout(env, policy, state, obs, PROFILE_STEPS,
+                                                settle=PROFILE_STEPS), env.device)
+    return ptrain.step_breakdown(prof, PROFILE_STEPS, step_ms)
 
 
 def export_phases(torch, dev):
@@ -2310,6 +2278,188 @@ def export_phases(torch, dev):
     return launches
 
 
+def fma_entry(torch, dev):
+    """Phase 29's kernel check: the FMA probe (``scripts/roofline.fma_chain``)
+    against its plain version on the roofline's input, timed with it; the
+    kernels line's entry without ``launches``."""
+    from unitree_rl_gym_tpu_torch.scripts import roofline as rl
+
+    x = rl.fma_input(dev)
+    got, ref = rl.fma_chain(x), rl.fma_chain_plain(x)
+    torch.cuda.synchronize()
+    rel = float(((got - ref).abs() / ref.abs()).max())
+    check(rel <= FMA_RTOL, f"FMA probe: largest relative error {rel} against its "
+          f"plain version (bar {FMA_RTOL})")
+    t_ops = rl.fma_flops() / PEAK_FP32_FLOPS * 1e3
+    t_bytes = rl.fma_bytes() / PEAK_BYTES_PER_S * 1e3
+    return {
+        "name": "roofline_fma",
+        "route": "cuda",
+        "source": "unitree_rl_gym_tpu_torch/csrc/roofline_fma.cu",
+        "replaces": "unitree_rl_gym_tpu/scripts/roofline.py:114",
+        "replaces_function": "roofline.vpu_f32 (a jnp FMA chain that XLA fuses; "
+                             "no Pallas kernel)",
+        "max_abs_err": float((got - ref).abs().max()),
+        "max_rel_err": rel,
+        "rtol": FMA_RTOL,
+        "ms": cuda_ms(torch, lambda: rl.fma_chain(x), TIME_LAUNCHES, 3),
+        "plain_ms": cuda_ms(torch, lambda: rl.fma_chain_plain(x), TIME_PLAIN, 1),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
+def tooling_phases(torch, dev, entries):
+    """Phases 29-33: module 12's scripts and module 5's remainder on the
+    card. ``entries``: the kernels line so far, whose bounds phase 29
+    restates at the measured rates. Returns (K1's launches in phases
+    30-33, the FMA probe's entry of the kernels line)."""
+    import struct
+    import tempfile
+
+    import numpy as np
+
+    from unitree_rl_gym_tpu_torch import resource
+    from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+    from unitree_rl_gym_tpu_torch.export.numpy_policy import NumpyPolicy
+    from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
+    from unitree_rl_gym_tpu_torch.scripts import make_pretrain as mp
+    from unitree_rl_gym_tpu_torch.scripts import profile_residue as pres
+    from unitree_rl_gym_tpu_torch.scripts import profile_train as ptrain
+    from unitree_rl_gym_tpu_torch.scripts import roofline as rl
+    from unitree_rl_gym_tpu_torch.utils import helpers
+
+    def k1_only(counts, n, what):
+        check(counts == {"k4": 0, "k1": n, "k3": 0, "k2": 0},
+              f"{what}: launches {counts}, expected K1 {n} times and nothing else")
+        return n
+
+    # ---- 29. roofline: the measured rates of this card ----
+    t0 = time.time()
+    rl.LAUNCHES_FMA = 0
+    rates = rl.measure(dev)
+    fma_launches = rl.LAUNCHES_FMA
+    check(fma_launches > 0, "the roofline did not launch the FMA probe")
+    for key in ("dispatch_overhead_ms", *rl.RATE_DATASHEET):
+        check(math.isfinite(rates[key]) and rates[key] > 0, f"roofline {key} {rates[key]}")
+    for key, sheet in rl.RATE_DATASHEET.items():
+        bar = ROOFLINE_MARGIN * rl.DATASHEET_H100_SXM[sheet]
+        check(rates[key] <= bar, f"roofline {key} {rates[key]} above {bar} "
+              f"({ROOFLINE_MARGIN} x the data sheet's {sheet}): the count or the timing is wrong")
+    fma = dict(fma_entry(torch, dev), launches=fma_launches)
+    fp32_scale = PEAK_FP32_FLOPS / (rates["fma_f32_tflops"] * 1e12)
+    hbm_scale = PEAK_BYTES_PER_S / (rates["hbm_gbps"] * 1e9)
+    bounds = {e["name"]: {"bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+                          "bound_ms_at_measured_rate": e["bound_ms"] * (
+                              fp32_scale if e["bound_by"] == "operations" else hbm_scale)}
+              for e in entries + [fma]}
+    emit(dict(rates, phase="roofline", fma_launches=fma_launches,
+              fma_max_rel_err=fma["max_rel_err"], fma_ms=fma["ms"],
+              fma_plain_ms=fma["plain_ms"], bounds_at_measured_rates=bounds,
+              seconds=time.time() - t0))
+
+    # ---- 30. profile_train: the flagship's device time by kernel name ----
+    t0 = time.time()
+    alg, env, carry, spi = ptrain.build("go2", N_ENVS, dev)
+    it_ms, carry = ptrain.time_iterations(alg, env, carry, 3)
+    zero_launch_counts()
+    prof, carry = ptrain.profile_iterations(alg, env, carry, PROFILE_TRAIN_ITERS)
+    k1 = k1_only(launch_counts(), 24 * PROFILE_TRAIN_ITERS, "profile_train's window")
+    total, rows = ptrain.top_kernels(ptrain.device_events(prof)[1])
+    check(total > 0, "profile_train: the profiler saw no device time")
+    check(rows and all(name for _, _, name in rows), f"profile_train rows {rows}")
+    emit({"phase": "profile_train", "task": "go2", "n_envs": N_ENVS,
+          "iteration_ms": it_ms, "env_steps_per_s": spi / it_ms * 1e3,
+          "profiled_iters": PROFILE_TRAIN_ITERS, "k1_launches": k1,
+          "device_ms_total": total, "device_ms_per_iteration": total / PROFILE_TRAIN_ITERS,
+          "top": [list(r) for r in rows], "seconds": time.time() - t0})
+    del alg, env, carry, prof
+
+    # ---- 31. profile_residue: the flagship iteration's A-E breakdown ----
+    t0 = time.time()
+    progs, spi = pres.programs("go2", N_ENVS, dev)
+    ms, k1_res = {}, 0
+    for name, fn in progs.items():
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        ms[name] = pres.timeit(fn, RESIDUE_ITERS, dev)
+        k1_res += k1_only(launch_counts(), 24 * (RESIDUE_ITERS + 1),
+                          f"profile_residue program {name}, {RESIDUE_ITERS + 1} calls")
+    res = pres.residue(ms, "go2", N_ENVS, spi)
+    check(all(math.isfinite(v) for k, v in res.items() if k not in ("task", "num_envs")),
+          f"profile_residue: {res}")
+    emit(dict(res, phase="profile_residue", calls_per_program=RESIDUE_ITERS + 1,
+              k1_launches=k1_res, k1_launches_per_call=24, ms_unrounded=ms,
+              seconds=time.time() - t0))
+    del progs
+    k1 += k1_res
+
+    # ---- 32. make_pretrain: train, export, curves ----
+    t0 = time.time()
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "pre_train", "go2")
+    args = helpers.get_args(["--task=go2", f"--num_envs={N_ENVS}", f"--device={dev.type}",
+                             f"--max_iterations={PRETRAIN_ITERS}",
+                             f"--experiment_name={os.path.join(tmp.name, 'logs')}"])
+    zero_launch_counts()
+    out_dir, runner = mp.make_pretrain(args, out)
+    torch.cuda.synchronize()
+    # reset_all's zero-action step, then 24 an iteration
+    k1 += k1_only(launch_counts(), 1 + 24 * PRETRAIN_ITERS, "make_pretrain")
+    shipped = resource("resources/pre_train/go2")
+    check(out_dir == out, f"make_pretrain wrote to {out_dir}")
+    check(sorted(os.listdir(out)) == sorted(os.listdir(shipped)),
+          f"make_pretrain wrote {sorted(os.listdir(out))}, the shipped go2 has "
+          f"{sorted(os.listdir(shipped))}")
+    with open(os.path.join(out, "policy_meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(shipped, "policy_meta.json")) as f:
+        check(set(meta) == set(json.load(f)), f"policy_meta.json keys {sorted(meta)}")
+    with open(os.path.join(out, "policy.bin"), "rb") as f:
+        header = struct.unpack("<9I", f.read(36))
+    check(header == (0x4C525455, 1, 0, 48, 12, 0, 0, 4, 0), f"policy.bin header {header}")
+    obs = runner._obs
+    mu = runner.get_inference_policy()(obs).cpu().numpy()
+    np_err = float(np.abs(NumpyPolicy(out)(obs.cpu().numpy()) - mu).max())
+    check(np_err <= PRETRAIN_ATOL, f"NumpyPolicy on make_pretrain's npz: {np_err} from "
+          f"the runner's policy (bar {PRETRAIN_ATOL})")
+    with open(os.path.join(out, "curves.json")) as f:
+        check(len(json.load(f)) == PRETRAIN_ITERS, "curves.json rows")
+    emit({"phase": "make_pretrain", "task": "go2", "n_envs": N_ENVS,
+          "iterations": PRETRAIN_ITERS, "files": sorted(os.listdir(out)),
+          "policy_bin_header": list(header), "numpy_policy_max_abs_err": np_err,
+          "atol": PRETRAIN_ATOL, "k1_launches": 1 + 24 * PRETRAIN_ITERS,
+          "seconds": time.time() - t0})
+    del runner
+    tmp.cleanup()
+
+    # ---- 33. activations: one flagship iteration per non-elu activation ----
+    t0 = time.time()
+    tmp = tempfile.TemporaryDirectory()
+    env_cfg, _ = task_registry.get_cfgs("go2")
+    env_cfg.env.num_envs = N_ENVS
+    env, _ = task_registry.make_env("go2", env_cfg=env_cfg, device=dev)
+    losses, writer = {}, {}
+    for act in ACTIVATION_NAMES:
+        _, train_cfg = task_registry.get_cfgs("go2")
+        train_cfg.policy.activation = act
+        runner = OnPolicyRunner(env, train_cfg, os.path.join(tmp.name, act))
+        runner.learn(0)   # the env's reset (one zero-action step), the writer
+        zero_launch_counts()
+        rows = runner.learn(1)
+        k1 += k1_only(launch_counts(), 24, f"the {act} iteration")
+        check_rows(rows, torch, runner, f"the {act} iteration")
+        losses[act] = {k: rows[-1][k] for k in ("value_loss", "surrogate_loss", "kl", "lr")}
+        writer[act] = runner._writer is not None
+        del runner
+    emit({"phase": "activations", "task": "go2", "n_envs": N_ENVS,
+          "iterations_each": 1, "k1_launches_each": 24, "losses": losses,
+          "tensorboard_writer": writer, "seconds": time.time() - t0})
+    tmp.cleanup()
+    return k1, fma
+
+
 def _time_limit(signum, frame):
     raise TimeoutError(f"chip_smoke ran past {TIME_LIMIT_S} s")
 
@@ -2328,7 +2478,7 @@ def main():
     from unitree_rl_gym_tpu_torch.models.networks import load_flat_policy
     from unitree_rl_gym_tpu_torch.physics import backend as pb
     from unitree_rl_gym_tpu_torch.physics import cuda_step
-    from unitree_rl_gym_tpu_torch.scripts import play
+    from unitree_rl_gym_tpu_torch.scripts import play, roofline
     from unitree_rl_gym_tpu_torch.utils import helpers
 
     dev = torch.device("cuda")
@@ -2350,8 +2500,16 @@ def main():
     m_hs = handstand_model(dev)
     m_hum = {task: task_model(task, dev) for task in ("g1", "h1", "h1_2")}
     t_build = time.time()
+    # the roofline's FMA probe (phase 29) builds beside the physics libraries
+    fma_build = {}
+    fma_thread = threading.Thread(target=lambda: fma_build.update(
+        path=cuda_step.build_source((roofline.FMA_SOURCE,), cuda_step.NVCC_FLAGS,
+                                    "roofline_fma")))
+    fma_thread.start()
     libs = cuda_step.build_all([m, m_hs], only=[(mm, "control_step")
                                                 for mm in m_hum.values()])
+    fma_thread.join()
+    check("path" in fma_build, "csrc/roofline_fma.cu did not build")
     build_s = time.time() - t_build
     lib_path = libs[("control_step", cuda_step.size_defines(m))]
     ptxas = ptxas_by_kernel(cuda_step.BUILD_LOGS.get(lib_path, ""))
@@ -2373,7 +2531,9 @@ def main():
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     resident = {k: cuda_step.resident_envs(mm, lib, terr) for k, (mm, lib, terr) in runs.items()}
     emit({"phase": "build", "library": lib_path.split("unitree_rl_gym_tpu_torch/")[-1],
-          "build_seconds": build_s, "libraries_built_together": len(libs),
+          "build_seconds": build_s, "libraries_built_together": len(libs) + 1,
+          "roofline_fma_ptxas": [ln.strip() for ln in cuda_step.BUILD_LOGS.get(
+              fma_build["path"], "").splitlines() if "registers" in ln or "spill" in ln],
           "ptxas": ptxas, "spill_bytes_stores_loads": spills,
           "ptxas_humanoid": {name: instance_ptxas(cuda_step, m_hum[task], "control_step",
                                                   name.split()[0])
@@ -2515,7 +2675,7 @@ def main():
                 f" + {EXPORT_PLAY_STEPS} steps of scripts/play.py --resume and "
                 f"{EXPORT_LSTM_STEPS} steps checking policy_lstm_1.pt")
 
-    emit({"kernels": [{
+    k1_entry = {
         "name": "control_step_flat",
         "route": "cuda",
         "source": "unitree_rl_gym_tpu_torch/csrc/control_step.cu",
@@ -2531,7 +2691,14 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-    }, k3_entry, k2_entry, *k4_entries, *humanoid_entries]})
+    }
+    entries = [k1_entry, k3_entry, k2_entry, *k4_entries, *humanoid_entries]
+
+    # ---- 29-33. module 12's tooling and module 5's remainder (K1, the FMA
+    #      probe) ----
+    tool_launches, fma = tooling_phases(torch, dev, entries)
+    k1_entry["launches"] += tool_launches
+    emit({"kernels": entries + [fma]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

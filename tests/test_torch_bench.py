@@ -13,6 +13,7 @@ import json
 
 import bench_torch
 from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS_PER_ENV = 4
 

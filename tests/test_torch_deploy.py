@@ -42,6 +42,7 @@ import unitree_rl_gym_tpu_torch.export.numpy_policy as t_numpy
 import unitree_rl_gym_tpu_torch.models.robot as t_robot
 import unitree_rl_gym_tpu_torch.utils.viz as t_viz
 from unitree_rl_gym_tpu_torch import UNITREE_RL_GYM_TPU_ROOT_DIR, resource
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 JAX_DEPLOY = os.path.join(UNITREE_RL_GYM_TPU_ROOT_DIR, "unitree_rl_gym_tpu", "deploy")
 PORT_DEPLOY = os.path.join(UNITREE_RL_GYM_TPU_ROOT_DIR, "unitree_rl_gym_tpu_torch", "deploy")

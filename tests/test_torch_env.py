@@ -22,6 +22,7 @@ from unitree_rl_gym_tpu.envs.base_env import LeggedEnv as JaxEnv
 from unitree_rl_gym_tpu.envs.go2 import go2_rough_cfg as jax_go2_cfg
 from unitree_rl_gym_tpu_torch.envs.base_env import EnvState, LeggedEnv
 from unitree_rl_gym_tpu_torch.envs.go2 import go2_rough_cfg
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N = 8
 STEPS = 16

@@ -11,6 +11,7 @@ import torch
 
 from unitree_rl_gym_tpu_torch.envs.base_env import LeggedEnv
 from unitree_rl_gym_tpu_torch.envs.go2 import go2_rough_cfg
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _env(**dr):

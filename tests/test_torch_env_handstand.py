@@ -31,6 +31,7 @@ from unitree_rl_gym_tpu.physics import soa as jsoa
 from unitree_rl_gym_tpu_torch.envs import go2_handstand as ths
 from unitree_rl_gym_tpu_torch.envs.registry import task_registry
 from unitree_rl_gym_tpu_torch.physics import backend as pb
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N = 8
 # the handstand's reward terms with a nonzero scale, and termination

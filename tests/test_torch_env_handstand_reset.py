@@ -55,6 +55,7 @@ from unitree_rl_gym_tpu_torch.envs import go2_handstand as ths
 from unitree_rl_gym_tpu_torch.envs.base_env import EnvState
 from unitree_rl_gym_tpu_torch.envs.registry import task_registry
 from unitree_rl_gym_tpu_torch.models.networks import load_flat_policy
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N = 8
 STEPS = 16

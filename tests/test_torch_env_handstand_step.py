@@ -36,6 +36,7 @@ from unitree_rl_gym_tpu_torch import resource
 from unitree_rl_gym_tpu_torch.envs import go2_handstand as ths
 from unitree_rl_gym_tpu_torch.envs.registry import task_registry
 from unitree_rl_gym_tpu_torch.models.networks import load_flat_policy
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 WARMUP = 8       # port-only policy steps before the comparison starts
 STEPS = 12

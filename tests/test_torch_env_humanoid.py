@@ -29,6 +29,7 @@ from tests.test_torch_env import state_to_numpy
 from unitree_rl_gym_tpu.envs.registry import task_registry as jax_registry
 from unitree_rl_gym_tpu_torch.envs.base_env import EnvState
 from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N = 8
 STEPS = 12

@@ -13,6 +13,7 @@ from tests.test_torch_env_humanoid import (
     check_done, check_output, check_physics, check_reset_step,
     check_resets_reached, check_term, humanoid_traces,
 )
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,7 @@ from unitree_rl_gym_tpu_torch.models import networks as nets
 from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
 from unitree_rl_gym_tpu_torch.scripts import play
 from unitree_rl_gym_tpu_torch.utils import helpers
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 TASKS = ["go2", "go2_handstand", "g1", "h1_2"]
 MLP_ATOL, LSTM_ATOL, JAX_TS_ATOL = 1e-5, 1e-4, 1e-6

@@ -23,6 +23,7 @@ import torch
 
 from unitree_rl_gym_tpu_torch import UNITREE_RL_GYM_TPU_ROOT_DIR
 from unitree_rl_gym_tpu_torch.parallel import dryrun
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 SCRIPT = textwrap.dedent(
     """

@@ -39,6 +39,7 @@ from unitree_rl_gym_tpu_torch.physics import backend as pb
 from unitree_rl_gym_tpu_torch.physics import cuda_step
 from unitree_rl_gym_tpu_torch.physics import engine as eng
 from unitree_rl_gym_tpu_torch.physics import soa
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N = 8
 # the humanoids' sizes (SoAModel nb, nv, ncp, nrb) and decimation

@@ -27,6 +27,7 @@ from unitree_rl_gym_tpu_torch.envs.registry import task_registry as port_registr
 from unitree_rl_gym_tpu_torch.models.robot import build_robot
 from unitree_rl_gym_tpu_torch.physics import backend as pb
 from unitree_rl_gym_tpu_torch.physics import contact as ct
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 INT_FIELDS = {"parent", "rb_dyn_idx", "cp_dyn", "cp_body", "nb", "nj", "nv",
               "ncp", "nrb", "cp_slice", "cp_rb", "cp_perm", "rb_dyn",

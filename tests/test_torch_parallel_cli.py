@@ -30,6 +30,7 @@ from unitree_rl_gym_tpu_torch.parallel import mesh as pmesh
 from unitree_rl_gym_tpu_torch.rl.ppo import PPO, Batch
 from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
 from unitree_rl_gym_tpu_torch.utils.config import TrainCfg
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _run(args, timeout=300):
@@ -52,7 +53,10 @@ def test_torchrun_train_two_ranks(tmp_path):
     runs = os.listdir(str(tmp_path))
     assert len(runs) == 1, runs
     files = set(os.listdir(os.path.join(str(tmp_path), runs[0])))
-    assert {"model_1.pt", "model_1.pt.json", "curves.json"} == files
+    # rank 0 alone writes TensorBoard's one event file
+    events = {f for f in files if f.startswith("events.out.tfevents.")}
+    assert len(events) == 1
+    assert {"model_1.pt", "model_1.pt.json", "curves.json"} == files - events
     cfg, tcfg = task_registry.get_cfgs("go2")
     cfg.env.num_envs = 8
     env, _ = task_registry.make_env("go2", env_cfg=cfg, device="cpu")

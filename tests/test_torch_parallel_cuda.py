@@ -25,6 +25,7 @@ from unitree_rl_gym_tpu_torch.parallel import mesh as pmesh
 from unitree_rl_gym_tpu_torch.physics import backend as pb
 from unitree_rl_gym_tpu_torch.physics import cuda_step
 from unitree_rl_gym_tpu_torch.physics import engine as eng
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N_GLOBAL = 64
 WORLD = 2

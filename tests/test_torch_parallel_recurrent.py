@@ -55,6 +55,7 @@ from unitree_rl_gym_tpu_torch.envs.registry import task_registry
 from unitree_rl_gym_tpu_torch.parallel import mesh as pmesh
 from unitree_rl_gym_tpu_torch.parallel.dryrun import replica_state
 from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 WORLD = 2
 # the update alone on the one process's inputs: float64 parameters and
@@ -155,8 +156,11 @@ def test_torchrun_train_g1_two_ranks(tmp_path):
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     assert sum(line.startswith("it ") for line in res.stdout.splitlines()) == 1
     (run,) = os.listdir(str(tmp_path))
-    assert {"model_1.pt", "model_1.pt.json", "curves.json"} == set(
-        os.listdir(os.path.join(str(tmp_path), run)))
+    files = set(os.listdir(os.path.join(str(tmp_path), run)))
+    # rank 0 alone writes TensorBoard's one event file
+    events = {f for f in files if f.startswith("events.out.tfevents.")}
+    assert len(events) == 1
+    assert {"model_1.pt", "model_1.pt.json", "curves.json"} == files - events
     cfg, tcfg = task_registry.get_cfgs("g1")
     cfg.env.num_envs = 8
     env, _ = task_registry.make_env("g1", env_cfg=cfg, device="cpu")

@@ -42,6 +42,7 @@ import torch
 
 from tests.torch_parallel_rank import CASES, build_runner, minibatch_record
 from unitree_rl_gym_tpu_torch.parallel.dryrun import replica_state
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 RANK_SCRIPT = os.path.join(os.path.dirname(__file__), "torch_parallel_rank.py")
 WORLD = 2

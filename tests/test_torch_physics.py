@@ -24,6 +24,7 @@ from unitree_rl_gym_tpu.physics import engine as jeng
 from unitree_rl_gym_tpu_torch.envs.base_env import LeggedEnv
 from unitree_rl_gym_tpu_torch.envs.go2 import go2_rough_cfg
 from unitree_rl_gym_tpu_torch.physics import cuda_step
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N = 8
 

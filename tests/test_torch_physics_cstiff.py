@@ -35,6 +35,7 @@ from unitree_rl_gym_tpu.physics import backend as jpb
 from unitree_rl_gym_tpu.physics import contact as jct
 from unitree_rl_gym_tpu.physics import engine as jeng
 from unitree_rl_gym_tpu_torch.physics import backend as pb
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N = 8
 

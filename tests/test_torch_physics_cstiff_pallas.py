@@ -17,6 +17,7 @@ from tests.test_torch_physics_cstiff import (  # noqa: F401
     N, hs_envs, jax_hs_args, jax_hs_flat,
 )
 from unitree_rl_gym_tpu.physics import pallas_step
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_plain_cstiff_step_matches_pallas_interpret(hs_envs):  # noqa: F811

@@ -10,6 +10,7 @@ from tests.test_torch_kernel_host import (
 )
 from tests.test_torch_physics import N, envs, jax_args, jax_flat  # noqa: F401
 from unitree_rl_gym_tpu.physics import pallas_step
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_plain_step_matches_pallas_interpret(envs):  # noqa: F811

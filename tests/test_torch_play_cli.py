@@ -24,6 +24,7 @@ from unitree_rl_gym_tpu.utils import helpers as jax_helpers
 from unitree_rl_gym_tpu.utils.logger import Logger as JaxLogger
 from unitree_rl_gym_tpu_torch.scripts import play
 from unitree_rl_gym_tpu_torch.utils import helpers
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 JAX_ONLY = {"--platform", "--host_devices"}
 

@@ -19,6 +19,7 @@ from unitree_rl_gym_tpu_torch import UNITREE_RL_GYM_TPU_ROOT_DIR
 from unitree_rl_gym_tpu_torch.models.networks import (
     actor_critic_from_flat, load_flat_policy,
 )
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 PATH = os.path.join(UNITREE_RL_GYM_TPU_ROOT_DIR, "resources", "pre_train", "go2")
 

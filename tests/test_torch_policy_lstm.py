@@ -29,6 +29,7 @@ from unitree_rl_gym_tpu.utils.config import TrainCfg as JaxTrainCfg
 from unitree_rl_gym_tpu_torch import UNITREE_RL_GYM_TPU_ROOT_DIR
 from unitree_rl_gym_tpu_torch.envs.registry import task_registry
 from unitree_rl_gym_tpu_torch.models import networks as nets
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 T = 24
 B = 16

@@ -44,6 +44,7 @@ from unitree_rl_gym_tpu_torch.envs.go2_handstand import (
 from unitree_rl_gym_tpu_torch.models import networks as nets
 from unitree_rl_gym_tpu_torch.rl.ppo import PPO, Batch
 from unitree_rl_gym_tpu_torch.utils.config import TrainCfg
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 NUM_OBS, NUM_ACT = 46, 12

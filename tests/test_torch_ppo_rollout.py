@@ -41,6 +41,7 @@ from unitree_rl_gym_tpu_torch.envs.base_env import LeggedEnv
 from unitree_rl_gym_tpu_torch.envs.go2 import go2_rough_cfg, go2_rough_train_cfg
 from unitree_rl_gym_tpu_torch.models import networks as nets
 from unitree_rl_gym_tpu_torch.rl.ppo import PPO
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N = 16
 T = 6

@@ -68,6 +68,7 @@ from unitree_rl_gym_tpu_torch import resource
 from unitree_rl_gym_tpu_torch.envs.registry import task_registry
 from unitree_rl_gym_tpu_torch.models import networks as nets
 from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N, T = 8, 24
 TOL = dict(atol=1e-5, rtol=1e-4)

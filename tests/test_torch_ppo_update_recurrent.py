@@ -38,6 +38,7 @@ from tests.test_torch_ppo_update import (
 from unitree_rl_gym_tpu.rl.ppo import Transition
 from unitree_rl_gym_tpu_torch.rl.ppo import PPO, Batch
 from unitree_rl_gym_tpu_torch.utils.config import TrainCfg
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 T, N = 8, 16
 TOL = dict(atol=1e-5, rtol=1e-4)

@@ -12,6 +12,7 @@ from unitree_rl_gym_tpu_torch.models.networks import load_flat_policy
 from unitree_rl_gym_tpu_torch.physics import cuda_step
 from unitree_rl_gym_tpu_torch.scripts import play
 from unitree_rl_gym_tpu_torch.utils import helpers
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ from unitree_rl_gym_tpu.utils import terrain as jterrain
 from unitree_rl_gym_tpu.utils.config import TerrainCfg as JaxTerrainCfg
 from unitree_rl_gym_tpu_torch.utils import terrain as tterrain
 from unitree_rl_gym_tpu_torch.utils.config import TerrainCfg
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 N = 8
 W = 24

@@ -14,6 +14,7 @@ import torch
 from unitree_rl_gym_tpu_torch.physics import cuda_step
 from unitree_rl_gym_tpu_torch.scripts import train as train_script
 from unitree_rl_gym_tpu_torch.utils import helpers
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 # float32 bounds of the adaptive learning rate
 LR_MIN, LR_MAX = float(np.float32(1e-5)), float(np.float32(1e-2))

@@ -21,6 +21,7 @@ from unitree_rl_gym_tpu_torch.envs.registry import task_registry
 from unitree_rl_gym_tpu_torch.models.networks import load_flat_params
 from unitree_rl_gym_tpu_torch.physics import cuda_step
 from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_handstand_finetune_two_iterations_on_cpu():

@@ -24,6 +24,7 @@ from unitree_rl_gym_tpu_torch.rl.runner import OnPolicyRunner
 from unitree_rl_gym_tpu_torch.scripts import play
 from unitree_rl_gym_tpu_torch.scripts import train as train_script
 from unitree_rl_gym_tpu_torch.utils import helpers
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

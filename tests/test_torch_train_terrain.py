@@ -9,6 +9,7 @@ from unitree_rl_gym_tpu_torch.envs.go2 import go2_rough_cfg
 from unitree_rl_gym_tpu_torch.envs.registry import task_registry
 from unitree_rl_gym_tpu_torch.physics import cuda_step
 from unitree_rl_gym_tpu_torch.utils import helpers
+from port_test_env import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_terrain_training_two_iterations_on_cpu():

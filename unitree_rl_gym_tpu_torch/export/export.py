@@ -67,9 +67,17 @@ def export_flat(runner, path: str):
     return meta
 
 
+# the JAX exporter's own table (no crelu): a crelu policy is refused here,
+# with a KeyError, after its npz, meta and policy.bin were written, as there
+_TORCHSCRIPT_ACTIVATIONS = {"elu": nn.ELU, "relu": nn.ReLU, "tanh": nn.Tanh,
+                            "selu": nn.SELU, "sigmoid": nn.Sigmoid,
+                            "lrelu": nn.LeakyReLU}
+
+
 def _actor_mlp_to_torch(flat, activation) -> nn.Sequential:
     """The actor's ``Dense_i`` layers as ``nn.Linear`` (weight = kernel.T),
     each but the last followed by the activation."""
+    act = _TORCHSCRIPT_ACTIVATIONS[activation]
     dense = nets.dense_stack(flat, "actor")
     layers = []
     for i, (k, b) in enumerate(dense):
@@ -79,7 +87,7 @@ def _actor_mlp_to_torch(flat, activation) -> nn.Sequential:
             lin.bias.copy_(torch.from_numpy(b.copy()))
         layers.append(lin)
         if i < len(dense) - 1:
-            layers.append(nets.ACTIVATIONS[activation]())
+            layers.append(act())
     return nn.Sequential(*layers)
 
 

@@ -1,9 +1,11 @@
 """Actor-critic networks (counterpart of ``unitree_rl_gym_tpu/models/
 networks.py``: ``ActorCritic``, ``LSTMEncoder``, ``ActorCriticRecurrent``,
 ``reset_carry``, the Gaussian-policy helpers and ``build_network``),
-rsl_rl's models: elu MLP actor and critic with a learned
-state-independent log-std, and the recurrent variant whose actor and
-critic each read their own LSTM memory (``memory_a``, ``memory_c``).
+rsl_rl's models: MLP actor and critic with a learned state-independent
+log-std, and the recurrent variant whose actor and critic each read their
+own LSTM memory (``memory_a``, ``memory_c``). The MLPs take any activation
+of the JAX package's table (:data:`ACTIVATIONS`; ``crelu`` doubles the
+width the next layer takes).
 
 A network trained from scratch starts like Flax's defaults: lecun-normal
 kernels (a normal cut at two standard deviations, std
@@ -40,8 +42,29 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-# every policy the repo ships uses elu
-ACTIVATIONS = {"elu": nn.ELU}
+
+class CReLU(nn.Module):
+    """``crelu`` of the JAX package's table: relu(x) and relu(-x)
+    concatenated on the last axis, so the layer after it takes twice the
+    width."""
+
+    def forward(self, x):
+        return torch.cat((F.relu(x), F.relu(-x)), dim=-1)
+
+
+# the JAX package's ``_ACTIVATIONS`` with Flax's constants: leaky_relu's
+# slope 0.01 and selu's alpha and scale are torch's defaults too
+ACTIVATIONS = {
+    "elu": nn.ELU,
+    "relu": nn.ReLU,
+    "selu": nn.SELU,
+    "crelu": CReLU,
+    "lrelu": nn.LeakyReLU,
+    "tanh": nn.Tanh,
+    "sigmoid": nn.Sigmoid,
+}
+# the width an activation hands the next layer, per unit of its input
+_WIDTH = {"crelu": 2}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 LOG2PI = math.log(2.0 * math.pi)
@@ -61,11 +84,11 @@ class Dense(nn.Linear):
 def mlp(in_dim: int, hidden_dims: Sequence[int], out_dim: int,
         activation: str) -> nn.Sequential:
     if activation not in ACTIVATIONS:
-        raise NotImplementedError(f"activation '{activation}' is not ported yet")
+        raise ValueError(f"activation '{activation}' is not one of {sorted(ACTIVATIONS)}")
     layers, d = [], in_dim
     for h in hidden_dims:
         layers += [Dense(d, h), ACTIVATIONS[activation]()]
-        d = h
+        d = h * _WIDTH.get(activation, 1)
     layers.append(Dense(d, out_dim))
     return nn.Sequential(*layers)
 

@@ -25,7 +25,8 @@ those notes.
 Build: ``nvcc -shared -Xcompiler -fPIC`` of each source of
 :data:`LIBRARIES` into a shared library with a plain C interface, at first
 use, into ``unitree_rl_gym_tpu_torch/_build/<hash>/`` (keyed on the source,
-the header and the flags, git-ignored); loaded with ``ctypes``. No PyTorch
+the header and the flags, git-ignored; ``utils/cache.py`` relocates it or
+turns it off); loaded with ``ctypes``. No PyTorch
 headers are compiled, so a build takes seconds; :func:`build_all` starts
 every build of a list of models at once. The model's sizes are
 compile-time constants (``-DUTRL_NB/NCP/NRB``); its numbers travel as a
@@ -57,7 +58,9 @@ from unitree_rl_gym_tpu_torch.physics import engine as eng
 from unitree_rl_gym_tpu_torch.physics import soa
 
 CSRC_DIR = os.path.join(UNITREE_RL_GYM_TPU_TORCH_DIR, "csrc")
-BUILD_DIR = os.path.join(UNITREE_RL_GYM_TPU_TORCH_DIR, "_build")
+DEFAULT_BUILD_DIR = os.path.join(UNITREE_RL_GYM_TPU_TORCH_DIR, "_build")
+# where builds go (``utils/cache.enable_persistent_cache`` moves it)
+BUILD_DIR = DEFAULT_BUILD_DIR
 HEADER = "control_step.cuh"
 # library name -> its source (each built into its own shared library)
 LIBRARIES = {
@@ -381,15 +384,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def source_path(sources, flags, name: str) -> str:
+    """Where the build of ``csrc/`` files ``sources`` (the first one
+    compiled, the rest included) with ``flags`` lives: a hash of their
+    contents and the flags under :data:`BUILD_DIR`."""
+    h = hashlib.sha256()
+    for src in sources:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(flags).encode())
+    return os.path.join(BUILD_DIR, h.hexdigest()[:16], f"lib{name}.so")
+
+
 def library_path(m: soa.SoAModel, library: str = "control_step") -> str:
     """Where the build of ``library`` for this model's sizes lives (hash of
     its source, the header and the flags)."""
-    h = hashlib.sha256()
-    for name in (LIBRARIES[library], HEADER):
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS + size_defines(m)).encode())
-    return os.path.join(BUILD_DIR, h.hexdigest()[:16], f"lib{library}.so")
+    return source_path((LIBRARIES[library], HEADER),
+                       NVCC_FLAGS + size_defines(m), library)
 
 
 def build(m: soa.SoAModel, library: str = "control_step") -> str:
@@ -397,7 +408,16 @@ def build(m: soa.SoAModel, library: str = "control_step") -> str:
     same sources and flags exists; returns the library path. The nvcc
     report (ptxas registers and spills) is kept beside the library and
     read into :data:`BUILD_LOGS` either way."""
-    path = library_path(m, library)
+    return build_source((LIBRARIES[library], HEADER),
+                        NVCC_FLAGS + size_defines(m), library)
+
+
+def build_source(sources, flags, name: str) -> str:
+    """Compile ``csrc/`` ``sources[0]`` (including the rest) with ``flags``
+    into ``lib<name>.so`` at :func:`source_path` unless it exists there;
+    returns the path. nvcc's report goes beside it and into
+    :data:`BUILD_LOGS`."""
+    path = source_path(sources, flags, name)
     log = f"{path}.nvcc.log"
     if os.path.exists(path):
         if os.path.exists(log):
@@ -406,8 +426,8 @@ def build(m: soa.SoAModel, library: str = "control_step") -> str:
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *size_defines(m), "-I", CSRC_DIR,
-           "-o", tmp, os.path.join(CSRC_DIR, LIBRARIES[library])]
+    cmd = [_nvcc(), *flags, "-I", CSRC_DIR, "-o", tmp,
+           os.path.join(CSRC_DIR, sources[0])]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(

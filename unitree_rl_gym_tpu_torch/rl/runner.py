@@ -19,7 +19,11 @@ every ``save_interval`` iterations and at the end, each with the JSON meta
 ``model_<iteration>.pt.json`` of the JAX runner, and ``curves.json`` (one
 row of metrics per iteration) beside them. ``load`` also reads the JAX
 package's Flax ``model_<iteration>.ckpt`` (params, lr, iteration and Adam's
-moments). The TensorBoard writer is not ported.
+moments). Rank 0 also writes TensorBoard scalars (the JAX runner's tags,
+with the values of each iteration's ``curves.json`` row) to ``log_dir``
+where ``torch.utils.tensorboard`` imports, and says so where it does not;
+``UTRL_PROFILE_ITERS=n`` traces iterations ``start+1 .. start+n`` of a
+``learn`` call into ``<log_dir>/profile`` (``utils/profiling.trace``).
 
 Env data parallelism: with an env that holds one rank's block of the envs
 (``env.block``, ``parallel.mesh.EnvBlock``), every rank runs this runner on
@@ -84,6 +88,7 @@ class OnPolicyRunner:
         self._obs = None
         self._critic_obs = None
         self._carry = None
+        self._writer = None
         # one row of metrics per iteration, dumped as curves.json next to
         # the checkpoints
         self._curves: List[dict] = []
@@ -104,11 +109,24 @@ class OnPolicyRunner:
               init_at_random_ep_len: bool = False) -> List[dict]:
         """Train; returns the metric rows of these iterations."""
         self._ensure_env(init_at_random_ep_len)
+        if self.log_dir and self.is_main and self._writer is None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self._writer = SummaryWriter(log_dir=self.log_dir, flush_secs=10)
+            except ImportError as e:  # tensorboard is optional
+                print(f"[runner] tensorboard writer unavailable: {e}")
         start = self.current_learning_iteration
         steps_per_iter = (self.env.num_envs_global
                           * self.cfg.runner.num_steps_per_env)
+        profile_iters = int(os.environ.get("UTRL_PROFILE_ITERS", 0))
+        profiler_ctx = None
         rows = []
         for it in range(start, start + num_learning_iterations):
+            if profile_iters and it == start + 1:
+                from unitree_rl_gym_tpu_torch.utils.profiling import trace
+
+                profiler_ctx = trace(os.path.join(self.log_dir or ".", "profile"))
+                profiler_ctx.__enter__()
             t0 = time.perf_counter()
             (self._env_state, self._obs, self._critic_obs, self._carry,
              metrics) = self.alg.train_iteration(
@@ -119,12 +137,20 @@ class OnPolicyRunner:
             dt = time.perf_counter() - t0
             self.current_learning_iteration = it + 1
             rows.append(self._log(it, metrics, steps_per_iter / dt, dt))
+            if profiler_ctx is not None and it == start + profile_iters:
+                profiler_ctx.__exit__(None, None, None)
+                profiler_ctx = None
+                print(f"[runner] profile written to {self.log_dir or '.'}/profile")
             if (self.log_dir and self.is_main
                     and (it + 1) % self.cfg.runner.save_interval == 0):
                 self.save(os.path.join(self.log_dir, f"model_{it + 1}.pt"))
+        if profiler_ctx is not None:   # fewer iterations than the window
+            profiler_ctx.__exit__(None, None, None)
         if self.log_dir and self.is_main:
             self.save(os.path.join(
                 self.log_dir, f"model_{self.current_learning_iteration}.pt"))
+        if self._writer is not None:
+            self._writer.flush()
         return rows
 
     # ------------------------------------------------------------------
@@ -169,6 +195,18 @@ class OnPolicyRunner:
         if self.env.cfg.commands.curriculum:
             row["max_command_x"] = metrics["max_command_x"]
         self._curves.append(row)
+        if self._writer is not None:
+            w = self._writer
+            for name, v in ep_rews.items():
+                w.add_scalar(f"Episode/rew_{name}", v, it)
+            w.add_scalar("Loss/value_function", row["value_loss"], it)
+            w.add_scalar("Loss/surrogate", row["surrogate_loss"], it)
+            w.add_scalar("Loss/learning_rate", row["lr"], it)
+            w.add_scalar("Perf/total_fps", fps, it)
+            w.add_scalar("Train/mean_reward", row["mean_step_reward"], it)
+            w.add_scalar("Train/mean_episode_length", mean_ep_len, it)
+            if "terrain_level" in row:
+                w.add_scalar("Episode/terrain_level", row["terrain_level"], it)
         return row
 
     # ------------------------------------------------------------------

@@ -20,6 +20,10 @@ ranks that would share a card unless ``--dist_backend=gloo``), holds its
 block of the ``--num_envs`` global envs and trains one replica of the
 policy (an MLP, or the humanoids' LSTM with recurrent PPO); rank 0 alone
 logs and writes the checkpoints.
+
+Kernel builds go to the persistent build cache (``utils/cache.py``:
+UTRL_BUILD_CACHE=0 opts out, UTRL_BUILD_CACHE_DIR relocates it), and
+UTRL_PROFILE_ITERS=n traces n iterations into ``<log_dir>/profile``.
 """
 
 from unitree_rl_gym_tpu_torch import resolve_device
@@ -29,6 +33,9 @@ from unitree_rl_gym_tpu_torch.utils import helpers
 
 def train(args):
     from unitree_rl_gym_tpu_torch.envs.registry import task_registry
+    from unitree_rl_gym_tpu_torch.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     device = resolve_device(args.device)
     env_cfg, _ = task_registry.get_cfgs(args.task)
