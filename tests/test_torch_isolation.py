@@ -8,7 +8,10 @@ use them) and chip_smoke import, the go2 env builds
 on the CPU at N=4 and steps once, and its PPO runner builds and acts; the
 go2_handstand env of the robustness fine-tune (its DR on) builds and
 resets, and the fine-tune's runner (its PPO knobs on) takes the shipped
-weights, sets its anchor and acts; and the 2-rank dryrun runs on the CPU
+weights, sets its anchor and acts; the per-env control step
+(``backend.control_step_vmap``) and the per-substep ``ground_fn`` mode
+step a tiny heightfield (the handstand campaign scripts and the per-env
+physics are among the modules imported); and the 2-rank dryrun runs on the CPU
 (``--device=cpu``; its default is the card) with the same imports refused in
 the parent and in both spawned ranks. Without CUDA the dryrun's default
 raises instead of running on the CPU."""
@@ -46,6 +49,13 @@ SCRIPT = textwrap.dedent(
     ]
     for name in names:
         importlib.import_module(name)
+    # the handstand campaign scripts and the per-env (vmap) physics among them
+    for name in ("scripts.handstand_kickup_r5", "scripts.handstand_transfer_r5",
+                 "scripts.handstand_eval", "scripts.handstand_diag",
+                 "scripts.handstand_basin", "scripts.handstand_recipe",
+                 "physics.engine", "physics.contact", "physics.dynamics",
+                 "physics.spatial", "utils.math"):
+        assert pkg.__name__ + "." + name in names, name
     import chip_smoke
 
     from unitree_rl_gym_tpu_torch.envs.registry import task_registry
@@ -77,6 +87,24 @@ SCRIPT = textwrap.dedent(
     load_flat_params(runner.net, resource("resources/pre_train/go2_handstand"))
     runner.set_anchor()
     assert tuple(runner.get_inference_policy()(obs).shape) == (4, 12)
+
+    # the per-env formulation (torch.func.vmap) and the per-substep
+    # ground_fn mode on the tiny heightfield
+    from unitree_rl_gym_tpu_torch.physics import backend as pb
+    cfg, _ = task_registry.get_cfgs("go2")
+    cfg.env.num_envs = 2
+    cfg.terrain.mesh_type = "heightfield"
+    cfg.terrain.num_rows = cfg.terrain.num_cols = 2
+    cfg.terrain.terrain_length = cfg.terrain.terrain_width = 4.0
+    cfg.terrain.border_size = 2.0
+    env = task_registry.get_task_class("go2")(cfg, device="cpu")
+    state, _ = env.reset_all()
+    args = (env.robot.dyn, env.cparams, env.pd, cfg.sim.dt, 1, state.phys,
+            env.default_dof_pos.expand(2, 12), state.friction, state.mass_scale,
+            env.m_eff_n, env.m_eff_t)
+    s1, _ = pb.control_step_vmap(*args, ground_fn=env.grid.height_at)
+    s2, _ = pb.control_step(*args, ground_fn=env.grid.height_at)
+    assert float((s1.v - s2.v).abs().max()) < 1e-3
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
     assert not leaked, leaked
     print("imported", len(names), "modules")

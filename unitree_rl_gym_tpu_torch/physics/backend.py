@@ -1,37 +1,49 @@
 """Control-step dispatch (counterpart of ``unitree_rl_gym_tpu/physics/
-backend.py``: ``soa_model_for``, ``control_step_soa``, ``control_step``).
+backend.py``: ``soa_model_for``, ``control_step_vmap``,
+``control_step_soa``, ``sample_point_heights``, ``control_step``).
 
-Two implementations of the decimated control step:
+Three implementations of the decimated control step:
 
   * ``soa``  — physics/soa.py over [N] tensors: the plain PyTorch version,
                the path of every CPU tensor;
   * kernels K1 (flat ground), K3 (terrain) and K2 (either, with the
                per-env contact-stiffness scale ``cstiff``) — the
                hand-written CUDA kernels (physics/cuda_step.py), the only
-               path of a CUDA tensor.
+               path of a CUDA tensor;
+  * ``vmap`` — the per-env formulation (physics/engine.py) mapped over the
+               batch with ``torch.func.vmap``: ``control_step_vmap``, a
+               function of its own that tests and chip_smoke.py hold the
+               others against. ``control_step`` never picks it.
 
-``control_step`` picks one by the tensors' device, the operands given and
-the caller's env block, and nothing else: there is no probe and no
-fallback, so on a CUDA tensor it launches K1 (``gh`` and ``cstiff`` None),
-K3 (``gh`` given) or K2 (``cstiff`` given, with or without ``gh``) — as
-K4, the rank's launch of that instance on its env block, when the caller
-passes a ``parallel.mesh.EnvBlock`` of more than one rank — or raises. chip_smoke.py
-calls ``control_step_soa`` itself to hold the kernels against the plain
-version on the card.
+``control_step`` picks the plain version or a kernel by the tensors'
+device, the operands given and the caller's env block, and nothing else:
+there is no probe and no fallback, so on a CUDA tensor it launches K1
+(``gh`` and ``cstiff`` None), K3 (``gh`` given) or K2 (``cstiff`` given,
+with or without ``gh``) — as K4, the rank's launch of that instance on its
+env block, when the caller passes a ``parallel.mesh.EnvBlock`` of more than
+one rank — or raises. chip_smoke.py calls ``control_step_soa`` itself to
+hold the kernels against the plain version on the card.
 
-Terrain follows the JAX package's kernel formulation on every device:
-``gh`` [ncp,N] rows hold the ground height under every contact point at the
-start of the control step, frozen across its substeps. The JAX package's
-CPU path instead resamples the heightfield every substep (its
-``ground_fn``); that mode is not ported.
+Terrain has two formulations, as in the JAX package. The kernels' (and
+the env's, on every device): ``gh`` [ncp,N] rows hold the ground height
+under every contact point at the start of the control step, frozen across
+its substeps. The per-substep one: ``ground_fn`` (xy [..., 2] world meters
+-> heights, e.g. ``TerrainGrid.height_at``) samples the heightfield at every
+substep's own point positions; the plain version and ``control_step_vmap``
+run it. Given ``ground_fn`` without ``gh``, ``control_step`` runs the plain
+version's per-substep sampling on a CPU tensor, and on a CUDA tensor
+samples ``gh`` once with :func:`sample_point_heights` (one FK of the
+step-start state) and launches K3 (or K2) on it, as the JAX package's
+Pallas path does.
 
 ``cstiff`` [N] scales every env's contact de-penetration bias after its
 clamp to ``max_depenetration_velocity`` (the JAX package's order).
 
-Both return ``(PhysicsState, aux)`` with aux = {torques [N,nj],
-cf_rb [N,nrb,3], rb_pos_w [N,nrb,3], rb_vel_w [N,nrb,3]}, and with ``gh``
-also p_xy [2*ncp,N] rows: the end-of-step world x (rows 0..ncp-1) and y of
-every point, from which the env computes the next step's ``gh``.
+All return ``(PhysicsState, aux)`` with aux = {torques [N,nj],
+cf_rb [N,nrb,3], rb_pos_w [N,nrb,3], rb_vel_w [N,nrb,3]}, and on terrain
+(``control_step_soa`` and the kernels, given ``gh`` or ``ground_fn``) also
+p_xy [2*ncp,N] rows: the end-of-step world x (rows 0..ncp-1) and y of every
+point, from which the env computes the next step's ``gh``.
 """
 
 from __future__ import annotations
@@ -58,11 +70,32 @@ def soa_model_for(model: dyn.DynModel) -> soa.SoAModel:
     return sm
 
 
+def control_step_vmap(model, cparams, pd, sim_dt, decimation, state, target,
+                      friction, mass_scale, m_eff_n, m_eff_t, ground_fn=None,
+                      cstiff=None):
+    """The per-env control step (``engine.control_step``) mapped over the
+    env batch with ``torch.func.vmap``; ``cstiff`` defaults to ones. Returns
+    the batched state and aux (no ``p_xy``)."""
+    def one_env(bp, bq, q, v, tgt, fric, mass, cs):
+        s, aux = eng.control_step(
+            model, cparams, pd, sim_dt, decimation,
+            eng.PhysicsState(base_pos=bp, base_quat=bq, joint_q=q, v=v),
+            tgt, fric, mass, m_eff_n, m_eff_t, ground_fn=ground_fn, cstiff=cs)
+        return (s.base_pos, s.base_quat, s.joint_q, s.v), aux
+
+    if cstiff is None:
+        cstiff = torch.ones_like(friction)
+    (bp, bq, q, v), aux = torch.func.vmap(one_env)(
+        state.base_pos, state.base_quat, state.joint_q, state.v, target,
+        friction, mass_scale, cstiff)
+    return eng.PhysicsState(base_pos=bp, base_quat=bq, joint_q=q, v=v), aux
+
+
 def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
                      friction, mass_scale, m_eff_n, m_eff_t, gh=None,
-                     want_phi=False, cstiff=None):
-    """Batched SoA control step in plain PyTorch (``gh``, ``cstiff``: see
-    the module docstring).
+                     want_phi=False, cstiff=None, ground_fn=None):
+    """Batched SoA control step in plain PyTorch (``gh``, ``ground_fn``,
+    ``cstiff``: see the module docstring).
 
     ``want_phi`` adds ``aux["min_abs_phi"]`` [N]: the smallest |penetration|
     of any contact point over the substeps, which tells a comparison with
@@ -84,7 +117,7 @@ def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
         bp, bq, q, v, tau, pn, pt, phi = soa.substep_s(
             m, cparams, kp, kd, lim, pd.clip_torque, sim_dt,
             bp, bq, q, v, tgt, friction, mass_scale, m_eff_n, m_eff_t, gh,
-            cstiff,
+            cstiff, ground_fn,
         )
         if want_phi:
             a = phi.abs().amin(dim=0)
@@ -103,7 +136,7 @@ def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
         "rb_pos_w": torch.stack([torch.stack(p, -1) for p in rb_pos], 1),
         "rb_vel_w": torch.stack([torch.stack(u, -1) for u in rb_vel], 1),
     }
-    if gh is not None:
+    if gh is not None or ground_fn is not None:
         _, x_w = soa.point_world_positions_s(m, R_w, p_w, bp[0])
         aux["p_xy"] = torch.cat([x_w[0], x_w[1]], dim=0)
     if want_phi:
@@ -111,19 +144,36 @@ def control_step_soa(model, cparams, pd, sim_dt, decimation, state, target,
     return new_state, aux
 
 
+def sample_point_heights(model, state, ground_fn):
+    """The ground height under every contact point at the step-start state,
+    rows [ncp, N] (the kernels' ``gh`` layout): one FK, the points' world
+    xy, then ``ground_fn`` on them."""
+    m = soa_model_for(model)
+    bp = tuple(state.base_pos.unbind(-1))
+    R_w, p_w, _, _ = soa.fk_s(m, bp, tuple(state.base_quat.unbind(-1)),
+                              list(state.joint_q.unbind(-1)), list(state.v.unbind(-1)))
+    _, x_w = soa.point_world_positions_s(m, R_w, p_w, bp[0])
+    return ground_fn(torch.stack([x_w[0], x_w[1]], dim=-1))
+
+
 def control_step(model, cparams, pd, sim_dt, decimation, state, target,
                  friction, mass_scale, m_eff_n, m_eff_t, gh=None, cstiff=None,
-                 block=None):
+                 block=None, ground_fn=None):
     """The control step of every env: the plain version on a CPU tensor;
     on any other, kernel K2 when ``cstiff`` is given (with or without
     ``gh``), else K3 when ``gh`` is given and K1 when it is not (through
-    their wrappers, which raise on anything they do not take).
+    their wrappers, which raise on anything they do not take). With
+    ``ground_fn`` and no ``gh``, a CPU tensor samples the heightfield every
+    substep and a CUDA tensor takes ``gh = sample_point_heights(...)`` once
+    (the module docstring).
 
     ``block`` (``parallel.mesh.EnvBlock``): the tensors hold this rank's
     env block, not every env. With more than one rank, a CUDA tensor goes
     to K4 (the rank's launch of the same instance on its block) and a CPU
     tensor to the plain version on the block; the step has no traffic
     between ranks."""
+    if gh is None and ground_fn is not None and state.joint_q.device.type != "cpu":
+        gh = sample_point_heights(model, state, ground_fn)
     if block is not None and block.world_size > 1:
         n = state.joint_q.shape[0]
         if n != block.n_local:
@@ -137,7 +187,7 @@ def control_step(model, cparams, pd, sim_dt, decimation, state, target,
     if state.joint_q.device.type == "cpu":
         return control_step_soa(
             model, cparams, pd, sim_dt, decimation, state, target, friction,
-            mass_scale, m_eff_n, m_eff_t, gh, cstiff=cstiff,
+            mass_scale, m_eff_n, m_eff_t, gh, cstiff=cstiff, ground_fn=ground_fn,
         )
     args = (soa_model_for(model), cparams, pd, sim_dt, decimation, state,
             target, friction, mass_scale, m_eff_n, m_eff_t)

@@ -648,11 +648,14 @@ def point_world_positions_s(m: SoAModel, R_w, p_w, like):
 
 def contact_solve_s(m: SoAModel, params, E_up, R_w, p_w, chol,
                     v: List[Scalar], m_eff_n: np.ndarray, m_eff_t: np.ndarray,
-                    friction_env, dt: float, gh_frozen=None, cstiff=None):
-    """PGS impulse solve (the JAX package's ``contact_solve_s`` without the
-    per-substep ``ground_fn``). ``gh_frozen`` [ncp,N] holds the ground
-    height under every point, frozen across the control step's substeps;
-    None is the z=0 plane. ``cstiff`` [N] is the per-env contact-stiffness
+                    friction_env, dt: float, gh_frozen=None, cstiff=None,
+                    ground_fn=None):
+    """PGS impulse solve (the JAX package's ``contact_solve_s``).
+    ``gh_frozen`` [ncp,N] holds the ground height under every point, frozen
+    across the control step's substeps; without it, ``ground_fn`` (xy
+    [ncp, N, 2] world meters -> heights [ncp, N]) samples the heights at
+    this substep's own point positions; with neither the ground is the z=0
+    plane. ``cstiff`` [N] is the per-env contact-stiffness
     scale of the de-penetration bias, applied after its clamp to
     ``max_depenetration_velocity`` (the JAX order, so a stiff env may
     exceed that cap); None leaves the bias as it is.
@@ -666,6 +669,8 @@ def contact_solve_s(m: SoAModel, params, E_up, R_w, p_w, chol,
     met = _pc(m_eff_t, like)
 
     r_w, x_w = point_world_positions_s(m, R_w, p_w, like)
+    if gh_frozen is None and ground_fn is not None:
+        gh_frozen = ground_fn(torch.stack([x_w[0], x_w[1]], dim=-1))
     if gh_frozen is None:
         phi = radius_c - x_w[2]
     else:
@@ -750,11 +755,12 @@ def contact_solve_s(m: SoAModel, params, E_up, R_w, p_w, chol,
 
 def substep_s(m, params, pd_kp, pd_kd, pd_lim, clip_torque, sim_dt,
               bp, bq, q, v, target, friction_env, mass_scale,
-              m_eff_n, m_eff_t, gh_frozen=None, cstiff=None):
+              m_eff_n, m_eff_t, gh_frozen=None, cstiff=None, ground_fn=None):
     """One physics substep. All args/returns are scalar lists / tuples of
     [N] tensors; ``gh_frozen`` [ncp,N] is the ground height under every
-    point (None: the z=0 plane), ``cstiff`` [N] the contact-stiffness scale
-    (None: 1). Returns (bp, bq, q, v, tau, pn,
+    point, or else ``ground_fn`` samples it at this substep's positions
+    (neither: the z=0 plane; :func:`contact_solve_s`), ``cstiff`` [N] the
+    contact-stiffness scale (None: 1). Returns (bp, bq, q, v, tau, pn,
     (ptx, pty), phi)."""
     R_w, p_w, E_up, v_b = fk_s(m, bp, bq, q, v)
 
@@ -785,7 +791,7 @@ def substep_s(m, params, pd_kp, pd_kd, pd_lim, clip_torque, sim_dt,
 
     v_new, pn, pt, phi = contact_solve_s(
         m, params, E_up, R_w, p_w, chol, v_free, m_eff_n, m_eff_t,
-        friction_env, sim_dt, gh_frozen, cstiff,
+        friction_env, sim_dt, gh_frozen, cstiff, ground_fn,
     )
 
     # PhysX-parity joint velocity clamp and base velocity caps

@@ -4,9 +4,11 @@
 Spatial vectors are ``[angular(3); linear(3)]`` in body coordinates.
 Transforms are ``(E, r)`` pairs: ``E`` rotates A-frame coords into B-frame
 coords, ``r`` is the origin of B expressed in A. Everything broadcasts over
-leading batch dims. Only the build-time dynamics (models/robot.py,
-physics/contact.py::point_effective_mass) use this module; the control step
-runs in physics/soa.py and the CUDA kernel.
+leading batch dims and runs under ``torch.func.vmap``. The build-time
+dynamics (models/robot.py, physics/contact.py::point_effective_mass) and
+the per-env control step (physics/engine.py, the vmap formulation) use
+this module; the batched control step runs in physics/soa.py and the CUDA
+kernel.
 """
 
 from __future__ import annotations
@@ -28,12 +30,39 @@ def _mtv(E, v):
     return torch.einsum("...ji,...j->...i", E, v)
 
 
+def xform_compose(E1, r1, E2, r2):
+    """Compose X1∘X2: first X2 (A->B), then X1 (B->C); returns the (E, r)
+    of the A->C transform (Featherstone RBDA eq. 2.26)."""
+    return E1 @ E2, r2 + _mtv(E2, r1)
+
+
+def xform_inv(E, r):
+    """Inverse transform (B->A from A->B)."""
+    return E.transpose(-1, -2), -_mv(E, r)
+
+
 def xform_motion(E, r, v):
     """Apply motion transform: v_B = X v_A for v = [w; v]."""
     w, vl = v[..., :3], v[..., 3:]
     wB = _mv(E, w)
     vB = _mv(E, vl - _cross(r, w))
     return torch.cat((wB, vB), dim=-1)
+
+
+def xform_motion_inv(E, r, v):
+    """Apply inverse motion transform: v_A = X^{-1} v_B."""
+    w, vl = v[..., :3], v[..., 3:]
+    wA = _mtv(E, w)
+    vA = _mtv(E, vl) + _cross(r, wA)
+    return torch.cat((wA, vA), dim=-1)
+
+
+def xform_force(E, r, f):
+    """Apply force transform: n_B = E(n - r x f), f_B = E f."""
+    n, fl = f[..., :3], f[..., 3:]
+    nB = _mv(E, n - _cross(r, fl))
+    fB = _mv(E, fl)
+    return torch.cat((nB, fB), dim=-1)
 
 
 def xform_force_inv(E, r, f):
@@ -50,6 +79,29 @@ def motion_matrix(E, r):
     top = torch.cat((E, Z), dim=-1)
     bot = torch.cat((-E @ skew(r), E), dim=-1)
     return torch.cat((top, bot), dim=-2)
+
+
+def crm(v):
+    """Spatial motion cross-product operator v x as a 6x6 matrix."""
+    sw, sv = skew(v[..., :3]), skew(v[..., 3:])
+    Z = torch.zeros_like(sw)
+    top = torch.cat((sw, Z), dim=-1)
+    bot = torch.cat((sv, sw), dim=-1)
+    return torch.cat((top, bot), dim=-2)
+
+
+def cross_motion(v, m):
+    """v x_m m without the 6x6 operator."""
+    w, vl = v[..., :3], v[..., 3:]
+    mw, ml = m[..., :3], m[..., 3:]
+    return torch.cat((_cross(w, mw), _cross(vl, mw) + _cross(w, ml)), dim=-1)
+
+
+def cross_force(v, f):
+    """v x_f f = -(v x_m)^T f."""
+    w, vl = v[..., :3], v[..., 3:]
+    n, fl = f[..., :3], f[..., 3:]
+    return torch.cat((_cross(w, n) + _cross(vl, fl), _cross(w, fl)), dim=-1)
 
 
 def spatial_inertia(mass, com, inertia_com):
@@ -78,3 +130,20 @@ def rot_axis(axis, q):
     eye = torch.eye(3, dtype=axis.dtype, device=axis.device)
     R = eye * c + s * skew(axis) + (1.0 - c) * axis[..., :, None] * axis[..., None, :]
     return R.transpose(-1, -2)
+
+
+def rpy_matrix(rpy):
+    """URDF rpy (fixed-axis XYZ) -> rotation matrix R = Rz(y) Ry(p) Rx(r)."""
+    r, p, y = rpy.unbind(-1)
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    R = torch.stack(
+        (
+            cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr,
+            sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr,
+            -sp, cp * sr, cp * cr,
+        ),
+        dim=-1,
+    )
+    return R.reshape(R.shape[:-1] + (3, 3))

@@ -3,7 +3,9 @@
 
 Quaternions are stored ``[x, y, z, w]`` (scalar-last), as in the JAX
 package. Every function broadcasts over leading batch dims (``[N, 4]``
-quaternions, ``[N, 3]`` vectors).
+quaternions, ``[N, 3]`` vectors) and runs under ``torch.func.vmap``. The
+two random draws take a ``torch.Generator`` where the JAX functions take a
+PRNG key.
 """
 
 from __future__ import annotations
@@ -11,6 +13,33 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-9) -> torch.Tensor:
+    """Safe L2 normalization along ``dim``."""
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=dim, keepdim=True), min=eps)
+
+
+def quat_identity(shape=(), device=None) -> torch.Tensor:
+    """Identity quaternions of ``shape`` (xyzw)."""
+    q = torch.zeros(tuple(shape) + (4,), device=device)
+    q[..., 3] = 1.0
+    return q
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a ⊗ b for xyzw quaternions."""
+    ax, ay, az, aw = a.unbind(-1)
+    bx, by, bz, bw = b.unbind(-1)
+    return torch.stack(
+        (
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ),
+        dim=-1,
+    )
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
@@ -25,9 +54,19 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + w * t + torch.linalg.cross(xyz, t, dim=-1)
 
 
+quat_apply = quat_rotate
+
+
 def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate ``v`` by the inverse of ``q`` (world -> body)."""
     return quat_rotate(quat_conjugate(q), v)
+
+
+def quat_from_angle_axis(angle: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    """xyzw quaternion from rotation ``angle`` about unit ``axis``."""
+    half = 0.5 * angle
+    xyz = axis * torch.sin(half)[..., None]
+    return torch.cat((xyz, torch.cos(half)[..., None]), dim=-1)
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
@@ -46,6 +85,14 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def quat_integrate(q: torch.Tensor, omega_world: torch.Tensor, dt) -> torch.Tensor:
+    """Integrate orientation with world-frame angular velocity:
+    q' = normalize(q + 0.5*dt * [omega, 0] ⊗ q)."""
+    omega_quat = torch.cat((omega_world, torch.zeros_like(omega_world[..., :1])), dim=-1)
+    dq = 0.5 * dt * quat_mul(omega_quat, q)
+    return normalize(q + dq)
 
 
 def get_euler_xyz(q: torch.Tensor) -> torch.Tensor:
@@ -68,10 +115,47 @@ def get_euler_xyz(q: torch.Tensor) -> torch.Tensor:
     return torch.stack((roll, pitch, yaw), dim=-1)
 
 
+def quat_apply_yaw(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Apply only the yaw component of ``q`` to ``v``."""
+    q_yaw = torch.cat((torch.zeros_like(q[..., :2]), q[..., 2:4]), dim=-1)
+    return quat_rotate(normalize(q_yaw), v)
+
+
+def quat_from_euler_xyz(roll, pitch, yaw) -> torch.Tensor:
+    """Intrinsic xyz euler -> xyzw quaternion."""
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    return torch.stack(
+        (
+            sr * cp * cy - cr * sp * sy,
+            cr * sp * cy + sr * cp * sy,
+            cr * cp * sy - sr * sp * cy,
+            cr * cp * cy + sr * sp * sy,
+        ),
+        dim=-1,
+    )
+
+
 def wrap_to_pi(angles: torch.Tensor) -> torch.Tensor:
     """Wrap angles to (-pi, pi] (mod into [0, 2pi) then shift)."""
     a = torch.remainder(angles, 2.0 * math.pi)
     return a - 2.0 * math.pi * (a > math.pi)
+
+
+def rand_uniform(generator: torch.Generator, lo, hi, shape) -> torch.Tensor:
+    """U(lo, hi) of ``shape`` from ``generator``, on its device."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return lo + (hi - lo) * u
+
+
+def rand_sqrt_uniform(generator: torch.Generator, lower, upper, shape) -> torch.Tensor:
+    """Signed-sqrt-shaped draws in [lower, upper] (legged_gym's
+    ``torch_rand_sqrt_float``)."""
+    r = 2.0 * torch.rand(shape, generator=generator, device=generator.device) - 1.0
+    r = torch.where(r < 0.0, -torch.sqrt(-r), torch.sqrt(r))
+    r = (r + 1.0) / 2.0
+    return (upper - lower) * r + lower
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:
