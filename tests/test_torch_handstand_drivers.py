@@ -2,12 +2,16 @@
 half: ``scripts/handstand_{kickup_r5,transfer_r5,eval,diag,basin,recipe}.py``)
 against the JAX package's, on the CPU, without compiling any JAX program:
 
-  * every script's command-line options are its JAX counterpart's;
+  * every script's command-line options are its JAX counterpart's, each
+    with the same default, type and arity: both parsers are built from
+    the scripts' own ``add_argument`` lines;
   * ``EXPERIMENTS`` and the recipe's ``PHASES`` equal JAX's, and every
-    experiment's cfgs from ``experiment_cfgs`` equal those the JAX
-    ``run_experiment`` rule (:389-407) builds from the JAX package's cfgs,
-    as ``transfer_cfgs``' equal those of the JAX ``main`` (:171-194) for
-    the default options and for ``--pd-gain 0.8 1.2 --delay-prob 0.1``;
+    experiment's cfgs from ``experiment_cfgs`` equal those that the JAX
+    ``run_experiment``'s own cfg lines (:389-407), executed from its
+    source, build from the JAX package's cfgs, as ``transfer_cfgs``' equal
+    those of the JAX ``main``'s own lines (:171-194) on the arguments its
+    own parser gives, for the default options and for
+    ``--pd-gain 0.8 1.2 --delay-prob 0.1``;
   * ``Evaluator.runs`` / ``rates`` score the same (done, g_z, height)
     arrays alike (the rollouts stubbed on both instances), ``analyze``
     gives equal attempt records, and the basin's binning equals the JAX
@@ -23,9 +27,10 @@ against the JAX package's, on the CPU, without compiling any JAX program:
     checkpoint, and exports; the shipped ``resources/pre_train/go2_handstand``
     files are byte for byte as before."""
 
+import argparse
 import hashlib
 import os
-import re
+import tempfile
 import textwrap
 
 import numpy as np
@@ -71,11 +76,56 @@ def _source(package, script):
                              f"{script}.py")).read()
 
 
+def _lines(src, start, end, after=None):
+    """The dedented source lines from the one that starts with ``start``
+    up to the one that starts with ``end`` (excluded), the search starting
+    at ``after``."""
+    i = src.index(start, src.index(after) if after else 0)
+    return textwrap.dedent(src[i:src.index(end, i)])
+
+
+def _parser(package, script):
+    """The ``ArgumentParser`` of ``script``'s ``main``, built by its own
+    lines from ``ap = argparse.ArgumentParser()`` up to ``parse_args``;
+    None where the script takes no options."""
+    src = _source(package, script)
+    if "argparse.ArgumentParser()" not in src:
+        return None
+    i = src.index("    ap = argparse.ArgumentParser()")
+    block = textwrap.dedent(src[i:src.rindex("\n", 0, src.index("ap.parse_args(", i)) + 1])
+    art = (jkick if package == "unitree_rl_gym_tpu" else tkick).ART
+    ns = {"argparse": argparse, "os": os, "tempfile": tempfile, "ART": art}
+    exec(block, ns)
+    return ns["ap"]
+
+
+def _options(ap):
+    """Every option of ``ap`` as (flags, dest, default, type, nargs, const,
+    choices). ``--out``'s default is read as its last path part: the port
+    writes under the temp dir (``tempfile.gettempdir()``) where the JAX
+    script names ``/tmp``."""
+    opts = []
+    for a in ap._actions:
+        if isinstance(a, argparse._HelpAction):
+            continue
+        default = a.default
+        if a.dest == "out":
+            assert os.path.dirname(default) in ("/tmp", tempfile.gettempdir())
+            default = os.path.basename(default)
+        opts.append((tuple(a.option_strings), a.dest, default, a.type, a.nargs,
+                     a.const, a.choices))
+    return sorted(opts, key=repr)
+
+
 @pytest.mark.parametrize("script", SCRIPTS)
 def test_command_line_options_match_jax(script):
-    opts = [sorted(re.findall(r'add_argument\(\s*"(--[\w-]+)"', _source(p, script)))
-            for p in ("unitree_rl_gym_tpu", "unitree_rl_gym_tpu_torch")]
-    assert opts[0] == opts[1]
+    ref, got = (_parser(p, script) for p in ("unitree_rl_gym_tpu",
+                                               "unitree_rl_gym_tpu_torch"))
+    if ref is None:
+        assert got is None
+        return
+    assert _options(got) == _options(ref)
+    assert len(_options(ref)) >= 2
 
 
 def test_experiments_and_phases_match_jax():
@@ -103,25 +153,18 @@ def _tree(obj):
 
 
 def jax_experiment_cfgs(name):
-    """handstand_kickup_r5.run_experiment's cfg rule (:389-407) on the JAX
-    package's cfgs."""
-    iters, env_over, algo_over = jkick.EXPERIMENTS[name]
-    cfg, tcfg = jax_registry.get_cfgs("go2_handstand")
-    cfg.env.num_envs = 4096
-    for k, v in env_over.items():
-        if k.startswith("rew_"):
-            cfg.rewards.scales[k[4:]] = v
-        else:
-            tgt_blk = cfg.init_state if k.startswith("handstand_") else cfg.env
-            setattr(tgt_blk, k, v)
-    tcfg.policy.init_noise_std = 0.5
-    tcfg.algorithm.entropy_coef = 0.005
-    tcfg.algorithm.nan_guard = True
-    for k, v in algo_over.items():
-        setattr(tcfg.algorithm, k, v)
-    tcfg.runner.max_iterations = iters
-    tcfg.runner.save_interval = 10 ** 9
-    return iters, cfg, tcfg
+    """The cfgs that handstand_kickup_r5.run_experiment builds for ``name``:
+    its own lines (:389-407), executed from its source on the JAX
+    package's registry."""
+    src = _source("unitree_rl_gym_tpu", "handstand_kickup_r5")
+    ns = {"EXPERIMENTS": jkick.EXPERIMENTS, "name": name,
+          "task_registry": jax_registry}
+    exec(_lines(src, "    iters, env_over, algo_over = EXPERIMENTS[name]",
+                "    out = ", after="def run_experiment("), ns)
+    exec(_lines(src, '    cfg, tcfg = task_registry.get_cfgs("go2_handstand")',
+                "    env = task_registry.get_task_class(", after="def run_experiment("), ns)
+    assert ns["tcfg"].runner.max_iterations == ns["iters"]
+    return ns["iters"], ns["cfg"], ns["tcfg"]
 
 
 @pytest.mark.parametrize("name", list(jkick.EXPERIMENTS))
@@ -132,41 +175,26 @@ def test_experiment_cfgs_match_jax_rule(name):
     assert _tree(got[2]) == _tree(ref[2])
 
 
-def jax_transfer_cfgs(args):
-    """handstand_transfer_r5.main's cfg lines (:171-194) on the JAX
-    package's cfgs."""
-    cfg, tcfg = jax_registry.get_cfgs("go2_handstand")
-    cfg.env.num_envs = 4096
-    cfg.init_state.handstand_init_prob = 1.0
-    cfg.init_state.handstand_init_prob_final = 1.0
-    cfg.init_state.handstand_anneal_steps = 0.0
-    cfg.init_state.handstand_mid_frac = 0.25
-    cfg.domain_rand.randomize_contact_stiffness = True
-    cfg.domain_rand.contact_stiffness_range = tuple(args.stiff)
-    cfg.domain_rand.randomize_friction = True
-    cfg.domain_rand.friction_range = (0.3, 1.25)
-    cfg.domain_rand.push_robots = True
-    cfg.domain_rand.push_interval_s = args.push_interval
-    cfg.domain_rand.max_push_vel_xy = args.push_vel
-    if args.pd_gain is not None:
-        cfg.domain_rand.randomize_pd_gain = True
-        cfg.domain_rand.pd_gain_range = tuple(args.pd_gain)
-    cfg.domain_rand.action_delay_prob = args.delay_prob
-    tcfg.policy.init_noise_std = 0.5
-    tcfg.algorithm.entropy_coef = 0.005
-    tcfg.algorithm.nan_guard = True
-    tcfg.algorithm.anchor_kl_coef = args.anchor_coef
-    tcfg.algorithm.class_target_frac = 0.5
-    tcfg.runner.max_iterations = args.iters
-    tcfg.runner.save_interval = 10 ** 9
-    return cfg, tcfg
+def jax_transfer_cfgs(argv):
+    """The arguments and cfgs of handstand_transfer_r5.main: its parser
+    from its own ``add_argument`` lines, and its own cfg lines (:171-194)
+    executed from its source on the JAX package's registry."""
+    args = _parser("unitree_rl_gym_tpu", "handstand_transfer_r5").parse_args(argv)
+    ns = {"args": args, "task_registry": jax_registry}
+    exec(_lines(_source("unitree_rl_gym_tpu", "handstand_transfer_r5"),
+                '    cfg, tcfg = task_registry.get_cfgs("go2_handstand")',
+                "    env = task_registry.get_task_class(", after="def main("), ns)
+    return args, ns["cfg"], ns["tcfg"]
 
 
 @pytest.mark.parametrize("argv", list(TRANSFER_ARGS.values()), ids=list(TRANSFER_ARGS))
 def test_transfer_cfgs_match_jax(argv):
-    args = ttransfer.parse_args(argv)
-    for got, ref in zip(ttransfer.transfer_cfgs(args), jax_transfer_cfgs(args)):
-        assert _tree(got) == _tree(ref)
+    got_args = ttransfer.parse_args(argv)
+    ref_args, *ref = jax_transfer_cfgs(argv)
+    strip = lambda a: {k: v for k, v in vars(a).items() if k != "out"}  # noqa: E731
+    assert strip(got_args) == strip(ref_args)
+    for got, r in zip(ttransfer.transfer_cfgs(got_args), ref):
+        assert _tree(got) == _tree(r)
 
 
 class _Env:
@@ -226,15 +254,15 @@ def test_analyze_matches_jax():
 def test_basin_grid_matches_jax_lines():
     """The port's ``basin_grid`` against the binning lines of the JAX
     ``main`` itself (:105-121), executed on the same seeded arrays."""
-    src = _source("unitree_rl_gym_tpu", "handstand_basin")
-    lines = src[src.index("    th_bins = ["):src.index('    print(f"overall')]
+    lines = _lines(_source("unitree_rl_gym_tpu", "handstand_basin"),
+                   "    th_bins = [", '    print(f"overall')
     rng = np.random.default_rng(1)
     for _ in range(3):
         th0 = rng.uniform(30.0, 150.0, 256)
         w0 = rng.uniform(-2.0, 16.0, 256)
         held = rng.random(256) < 0.6
         ns = {"np": np, "th0": th0, "w0": w0, "held": held}
-        exec(textwrap.dedent(lines), ns)
+        exec(lines, ns)
         assert len(ns["grid"]) > 20
         assert tbasin.basin_grid(th0, w0, held) == ns["grid"]
 

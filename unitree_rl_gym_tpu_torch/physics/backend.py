@@ -48,6 +48,7 @@ point, from which the env computes the next step's ``gh``.
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
 
 import numpy as np
@@ -76,6 +77,11 @@ def control_step_vmap(model, cparams, pd, sim_dt, decimation, state, target,
     """The per-env control step (``engine.control_step``) mapped over the
     env batch with ``torch.func.vmap``; ``cstiff`` defaults to ones. Returns
     the batched state and aux (no ``p_xy``)."""
+    dev = state.v.device
+    model = dataclasses.replace(model, **{
+        f.name: getattr(model, f.name).to(dev) for f in dataclasses.fields(model)
+        if torch.is_tensor(getattr(model, f.name))})
+
     def one_env(bp, bq, q, v, tgt, fric, mass, cs):
         s, aux = eng.control_step(
             model, cparams, pd, sim_dt, decimation,

@@ -20,7 +20,6 @@ Generalized coordinates, as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Tuple
 
 import torch
@@ -97,24 +96,6 @@ def velocity_prop(model: DynModel, E_up, r_up, v):
         S_qd = torch.cat((model.joint_axis[j] * v[..., 6 + j, None], zeros), dim=-1)
         v_b.append(vi + S_qd)
     return torch.stack(v_b, dim=-2)
-
-
-def to_device(model: DynModel, device) -> DynModel:
-    """``model`` with every tensor on ``device`` (cached per model and
-    device; the build keeps the model on the CPU)."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        return model
-    per_model = _DEVICE_CACHE.setdefault(model, {})
-    if device not in per_model:
-        per_model[device] = dataclasses.replace(model, **{
-            f.name: getattr(model, f.name).to(device)
-            for f in dataclasses.fields(model)
-            if torch.is_tensor(getattr(model, f.name))})
-    return per_model[device]
-
-
-_DEVICE_CACHE: "weakref.WeakKeyDictionary[DynModel, dict]" = weakref.WeakKeyDictionary()
 
 
 def _scaled_inertias(model: DynModel, mass_scale):

@@ -57,11 +57,10 @@ def control_step(model: dyn.DynModel, cparams: ct.ContactParams, pd: PDParams,
     preconditioner, ``ground_fn`` the terrain height lookup (None: the z=0
     plane), ``cstiff`` the contact-stiffness DR scale (None: 1).
 
-    ``model`` is moved to the state's device. Returns (new_state, aux), aux
+    ``model`` lies on the state's device. Returns (new_state, aux), aux
     from the last substep and the settled state: torques [nj], cf_rb
     [nrb, 3] world contact forces, rb_pos_w and rb_vel_w [nrb, 3]."""
     dev = state.v.device
-    model = dyn.to_device(model, dev)
 
     def const(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
