@@ -30,7 +30,8 @@ Tasks override the hooks of the JAX package's ``LeggedEnv``:
 ``_reward_registry``, ``_noise_scale_vec``, ``_build_obs(ctx)``,
 ``_callback``, ``_extra_ctx``, ``_compute_target``, ``_check_termination``,
 ``_init_task_state`` and ``_sample_reset(..., task_state)``
-(envs/go2_handstand.py, envs/humanoid.py).
+(envs/go2_handstand.py, envs/humanoid.py); a task that adds to the whole
+step overrides ``_step``, the body of ``step`` inside its ``env_step`` span.
 
 Randomness comes from one ``torch.Generator`` held by the env on its device
 and seeded from ``cfg.seed`` (``--seed``). It cannot reproduce the JAX
@@ -73,6 +74,7 @@ from unitree_rl_gym_tpu_torch.physics import dynamics as dyn
 from unitree_rl_gym_tpu_torch.physics import engine as eng
 from unitree_rl_gym_tpu_torch.utils import math as tm
 from unitree_rl_gym_tpu_torch.utils.config import LeggedRobotCfg
+from unitree_rl_gym_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -398,13 +400,14 @@ class LeggedEnv:
         No-op on the plane."""
         if self.terrain is None:
             return state
-        win, corner = self.grid.window_at(
-            state.phys.base_pos[:, :2], W=self.cfg.terrain.window_size)
-        return state.replace(
-            win=win, win_corner=corner,
-            win_stale=torch.zeros((self.num_envs,), dtype=torch.bool,
-                                  device=self.device),
-        )
+        with span("env_refresh_terrain"):
+            win, corner = self.grid.window_at(
+                state.phys.base_pos[:, :2], W=self.cfg.terrain.window_size)
+            return state.replace(
+                win=win, win_corner=corner,
+                win_stale=torch.zeros((self.num_envs,), dtype=torch.bool,
+                                      device=self.device),
+            )
 
     def _sample_reset(self, n, origins, vx_range=None, task_state=None):
         """Fresh physics state + commands for ``n`` envs
@@ -532,7 +535,15 @@ class LeggedEnv:
 
         ``refresh_terrain`` re-centers the heightfield windows first (eval
         loops); the PPO rollout passes False and refreshes every
-        ``terrain.window_refresh_steps`` steps itself."""
+        ``terrain.window_refresh_steps`` steps itself. The step runs as the
+        ``env_step`` span, its parts as ``env_physics``, ``env_rewards``,
+        ``env_reset``, ``terrain_window_contraction`` and ``env_obs``."""
+        with span("env_step"):
+            return self._step(state, actions, refresh_terrain)
+
+    def _step(self, state: EnvState, actions, refresh_terrain: bool):
+        """The body of :meth:`step`; a task that adds to the step overrides
+        this, so that its additions run inside the ``env_step`` span."""
         cfg = self.cfg
         N = self.num_envs
         if refresh_terrain:
@@ -556,12 +567,13 @@ class LeggedEnv:
 
         # ---- physics: K1 (plane), K3 (terrain) or K2 (contact-stiffness
         #      DR) on CUDA tensors, the plain version on CPU ----
-        phys, aux = pback.control_step(
-            self.robot.dyn, self.cparams, self.pd, cfg.sim.dt,
-            cfg.control.decimation, state.phys, target, state.friction,
-            state.mass_scale, self.m_eff_n, self.m_eff_t, state.gh,
-            cstiff=state.cstiff, block=self.block,
-        )
+        with span("env_physics"):
+            phys, aux = pback.control_step(
+                self.robot.dyn, self.cparams, self.pd, cfg.sim.dt,
+                cfg.control.decimation, state.phys, target, state.friction,
+                state.mass_scale, self.m_eff_n, self.m_eff_t, state.gh,
+                cstiff=state.cstiff, block=self.block,
+            )
         episode_length = state.episode_length + 1
         state = state.replace(phys=phys, actions=actions,
                               episode_length=episode_length)
@@ -635,80 +647,82 @@ class LeggedEnv:
         )
 
         # ---- rewards (legged_robot.py:770-787) ----
-        rew = torch.zeros(N, device=self.device)
-        term_rews = []
-        for name, scale in zip(self.reward_names, self.reward_scales):
-            r_i = self.reward_fns[name](ctx) * scale
-            rew = rew + r_i
-            term_rews.append(r_i)
-        if cfg.rewards.only_positive_rewards:
-            rew = torch.clamp(rew, min=0.0)
-        if self.termination_scale != 0.0:
-            r_t = R.termination(ctx) * self.termination_scale
-            rew = rew + r_t
-            term_rews.append(r_t)
-        episode_sums = state.episode_sums + torch.stack(term_rews, dim=1)
+        with span("env_rewards"):
+            rew = torch.zeros(N, device=self.device)
+            term_rews = []
+            for name, scale in zip(self.reward_names, self.reward_scales):
+                r_i = self.reward_fns[name](ctx) * scale
+                rew = rew + r_i
+                term_rews.append(r_i)
+            if cfg.rewards.only_positive_rewards:
+                rew = torch.clamp(rew, min=0.0)
+            if self.termination_scale != 0.0:
+                r_t = R.termination(ctx) * self.termination_scale
+                rew = rew + r_t
+                term_rews.append(r_t)
+            episode_sums = state.episode_sums + torch.stack(term_rews, dim=1)
 
         # ---- curricula, evaluated at reset time ----
-        m = reset_buf
-        mb = m[:, None]
-        terrain_level, env_origin = state.terrain_level, state.env_origin
-        if self.terrain is not None and cfg.terrain.curriculum:
-            rand_level = self._randint(cfg.terrain.num_rows, N)
-            terrain_level, env_origin = curricula.terrain_curriculum_at_reset(
-                cfg.terrain, self.terrain_origins, self.max_episode_length_s,
-                rand_level, m, phys.base_pos, commands, terrain_level,
-                state.terrain_type, env_origin,
+        with span("env_reset"):
+            m = reset_buf
+            mb = m[:, None]
+            terrain_level, env_origin = state.terrain_level, state.env_origin
+            if self.terrain is not None and cfg.terrain.curriculum:
+                rand_level = self._randint(cfg.terrain.num_rows, N)
+                terrain_level, env_origin = curricula.terrain_curriculum_at_reset(
+                    cfg.terrain, self.terrain_origins, self.max_episode_length_s,
+                    rand_level, m, phys.base_pos, commands, terrain_level,
+                    state.terrain_type, env_origin,
+                )
+            cmd_vx_range = state.cmd_vx_range
+            if cfg.commands.curriculum:
+                idx = self.reward_names.index("tracking_lin_vel")
+                cmd_vx_range = curricula.command_curriculum_at_reset(
+                    cfg.commands.max_curriculum, self.reward_scales[idx],
+                    self.max_episode_length, m, episode_sums[:, idx], cmd_vx_range,
+                    reduce=all_reduce_sum if self.distributed else None,
+                )
+
+            # ---- fused reset (legged_robot.py:723-768) ----
+            reset_phys, reset_cmds = self._sample_reset(
+                N, env_origin,
+                vx_range=cmd_vx_range if cfg.commands.curriculum else None,
+                task_state=state.task_state,
             )
-        cmd_vx_range = state.cmd_vx_range
-        if cfg.commands.curriculum:
-            idx = self.reward_names.index("tracking_lin_vel")
-            cmd_vx_range = curricula.command_curriculum_at_reset(
-                cfg.commands.max_curriculum, self.reward_scales[idx],
-                self.max_episode_length, m, episode_sums[:, idx], cmd_vx_range,
-                reduce=all_reduce_sum if self.distributed else None,
+
+            def sel(new, old):
+                return torch.where(m.reshape((N,) + (1,) * (old.ndim - 1)), new, old)
+
+            phys = eng.PhysicsState(
+                base_pos=sel(reset_phys.base_pos, phys.base_pos),
+                base_quat=sel(reset_phys.base_quat, phys.base_quat),
+                joint_q=sel(reset_phys.joint_q, phys.joint_q),
+                v=sel(reset_phys.v, phys.v),
             )
-
-        # ---- fused reset (legged_robot.py:723-768) ----
-        reset_phys, reset_cmds = self._sample_reset(
-            N, env_origin,
-            vx_range=cmd_vx_range if cfg.commands.curriculum else None,
-            task_state=state.task_state,
-        )
-
-        def sel(new, old):
-            return torch.where(m.reshape((N,) + (1,) * (old.ndim - 1)), new, old)
-
-        phys = eng.PhysicsState(
-            base_pos=sel(reset_phys.base_pos, phys.base_pos),
-            base_quat=sel(reset_phys.base_quat, phys.base_quat),
-            joint_q=sel(reset_phys.joint_q, phys.joint_q),
-            v=sel(reset_phys.v, phys.v),
-        )
-        reset_count = torch.sum(m)
-        ep_sums_at_reset = torch.sum(torch.where(mb, episode_sums, 0.0), dim=0)
-        ep_len_at_reset = torch.sum(torch.where(m, episode_length, 0))
-        state = state.replace(
-            phys=phys,
-            commands=torch.where(mb, reset_cmds, commands),
-            actions=torch.where(mb, 0.0, actions),
-            last_actions=torch.where(mb, 0.0, state.last_actions),
-            last_dof_vel=torch.where(mb, 0.0, state.last_dof_vel),
-            feet_air_time=torch.where(mb, 0.0, state.feet_air_time),
-            last_contacts=state.last_contacts & ~mb,
-            episode_length=torch.where(m, 0, episode_length).to(torch.int32),
-            episode_sums=torch.where(mb, 0.0, episode_sums),
-            terrain_level=terrain_level,
-            env_origin=env_origin,
-            cmd_vx_range=cmd_vx_range,
-        )
+            reset_count = torch.sum(m)
+            ep_sums_at_reset = torch.sum(torch.where(mb, episode_sums, 0.0), dim=0)
+            ep_len_at_reset = torch.sum(torch.where(m, episode_length, 0))
+            state = state.replace(
+                phys=phys,
+                commands=torch.where(mb, reset_cmds, commands),
+                actions=torch.where(mb, 0.0, actions),
+                last_actions=torch.where(mb, 0.0, state.last_actions),
+                last_dof_vel=torch.where(mb, 0.0, state.last_dof_vel),
+                feet_air_time=torch.where(mb, 0.0, state.feet_air_time),
+                last_contacts=state.last_contacts & ~mb,
+                episode_length=torch.where(m, 0, episode_length).to(torch.int32),
+                episode_sums=torch.where(mb, 0.0, episode_sums),
+                terrain_level=terrain_level,
+                env_origin=env_origin,
+                cmd_vx_range=cmd_vx_range,
+            )
 
         # ---- terrain height carry for the next step: the end-of-step point
         #      xy are the next step's start positions; envs reset since the
         #      last window refresh are outside their window and stand on
         #      their spawn platform (env_origin z) until the next refresh ----
         if self.terrain is not None:
-            with torch.profiler.record_function("terrain_window_contraction"):
+            with span("terrain_window_contraction"):
                 gh_live = self.grid.height_in_window_rows(
                     state.win, state.win_corner, aux["p_xy"])
             stale = state.win_stale | m
@@ -727,13 +741,14 @@ class LeggedEnv:
             ))
 
         # ---- observations (legged_robot.py:789-811) ----
-        obs, priv_obs = self._build_obs(self._obs_ctx(state, ctx))
-        if cfg.noise.add_noise:
-            obs = obs + (2.0 * self._rand(*obs.shape) - 1.0) * self.noise_scale_vec
-        clip_o = cfg.normalization.clip_observations
-        obs = torch.clamp(obs, -clip_o, clip_o)
-        if priv_obs is not None:
-            priv_obs = torch.clamp(priv_obs, -clip_o, clip_o)
+        with span("env_obs"):
+            obs, priv_obs = self._build_obs(self._obs_ctx(state, ctx))
+            if cfg.noise.add_noise:
+                obs = obs + (2.0 * self._rand(*obs.shape) - 1.0) * self.noise_scale_vec
+            clip_o = cfg.normalization.clip_observations
+            obs = torch.clamp(obs, -clip_o, clip_o)
+            if priv_obs is not None:
+                priv_obs = torch.clamp(priv_obs, -clip_o, clip_o)
 
         # ---- cache last_* (legged_robot.py:707-709) ----
         state = state.replace(

@@ -377,14 +377,14 @@ class GO2HandstandEnv(LeggedEnv):
         )
         return phys, commands
 
-    def step(self, state, actions, refresh_terrain: bool = True):
+    def _step(self, state, actions, refresh_terrain):
         """The base step, then (a) the contact-flag bit-flip
         (go2_handstand_env.py:160-169): with noise on, each of the last 4
         obs dims flips with probability 0.01; (b) the RSI-probability
         anneal: ``task_state`` decays linearly from
         ``init_state.handstand_init_prob`` to ``handstand_init_prob_final``
         over ``handstand_anneal_steps`` control steps."""
-        state, obs, priv, rew, reset, extras = super().step(
+        state, obs, priv, rew, reset, extras = super()._step(
             state, actions, refresh_terrain)
         if self.cfg.noise.add_noise and CONTACT_FLIP_P > 0:
             flips = self._rand(self.num_envs, 4) < CONTACT_FLIP_P

@@ -42,6 +42,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from unitree_rl_gym_tpu_torch.utils.profiling import span
+
 
 class CReLU(nn.Module):
     """``crelu`` of the JAX package's table: relu(x) and relu(-x)
@@ -169,7 +171,8 @@ class ActorCritic(_GaussianPolicy):
         return mu, std, value
 
     def act(self, obs):
-        return self._head(self.actor, obs)
+        with span("policy_act"):
+            return self._head(self.actor, obs)
 
 
 class LSTMCell(nn.Module):
@@ -256,8 +259,9 @@ class ActorCriticRecurrent(_GaussianPolicy):
         return mu, std, value, torch.stack((carry_a, carry_c))
 
     def act(self, obs, carry):
-        ha, carry_a = self.memory_a(obs, carry[0], self._compute_dtype)
-        return self._head(self.actor, ha), torch.stack((carry_a, carry[1]))
+        with span("policy_act"):
+            ha, carry_a = self.memory_a(obs, carry[0], self._compute_dtype)
+            return self._head(self.actor, ha), torch.stack((carry_a, carry[1]))
 
 
 def reset_carry(carry, done):

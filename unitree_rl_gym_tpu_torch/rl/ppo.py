@@ -87,6 +87,7 @@ import torch
 from unitree_rl_gym_tpu_torch.models import networks as nets
 from unitree_rl_gym_tpu_torch.parallel.mesh import all_reduce_sum, env_block
 from unitree_rl_gym_tpu_torch.utils.config import AlgorithmCfg
+from unitree_rl_gym_tpu_torch.utils.profiling import span
 
 
 class Batch(NamedTuple):
@@ -212,8 +213,9 @@ class PPO:
         for t in range(T):
             if getattr(env, "terrain", None) is not None and t % every == 0:
                 env_state = env.refresh_terrain(env_state)
-            mu, std, value, carry = self._forward(
-                obs, None if self.share_critic_obs else critic_obs, carry)
+            with span("policy_act"):
+                mu, std, value, carry = self._forward(
+                    obs, None if self.share_critic_obs else critic_obs, carry)
             eps = self.block.rows(self._action_noise(
                 t, (self.num_envs_global,) + mu.shape[1:]))
             actions = mu + std * eps
@@ -414,8 +416,7 @@ class PPO:
         if use_anchor:
             # KL(anchor || pi) on the states the anchor mask protects,
             # with its own masked mean
-            with torch.no_grad(), torch.profiler.record_function(
-                    "ppo_anchor_forward"):
+            with torch.no_grad(), span("ppo_anchor_forward"):
                 a_mu = self.anchor.act(b.obs)
                 a_std = torch.exp(self.anchor.log_std).expand_as(a_mu)
             akl = nets.kl_divergence(a_mu, a_std, mu, std)
@@ -576,7 +577,8 @@ class PPO:
         self.allreduce_s = 0.0
         for _ in range(cfg.num_learning_epochs):
             for b in mbs:
-                step_stats, was_skipped = self.minibatch_step(b, mb)
+                with span("ppo_minibatch"):
+                    step_stats, was_skipped = self.minibatch_step(b, mb)
                 stats += torch.stack(step_stats)
                 skipped += int(was_skipped)
         n_applied = max(cfg.num_learning_epochs * len(mbs) - skipped, 1)
@@ -600,19 +602,20 @@ class PPO:
         and the last value reads the rollout's final carry. ``metrics``
         holds device tensors plus the host seconds of the rollout and the
         update (the device is synchronised between them). Both run as
-        ``torch.profiler`` ranges ("ppo_rollout", "ppo_update")."""
+        spans ("ppo_rollout", "ppo_update"; GAE as "ppo_gae")."""
         t0 = time.perf_counter()
-        with torch.profiler.record_function("ppo_rollout"):
+        with span("ppo_rollout"):
             (env_state, obs, critic_obs, carry, tr, rewards, dones,
              ep) = self.rollout(env, env_state, obs, critic_obs, carry)
             with torch.no_grad():
                 _, _, last_value, _ = self._forward(
                     obs, None if self.share_critic_obs else critic_obs, carry)
-            advantages, returns = self.compute_gae(tr.values, rewards, dones,
-                                                   last_value)
+            with span("ppo_gae"):
+                advantages, returns = self.compute_gae(tr.values, rewards, dones,
+                                                       last_value)
             _sync(self.device)
         t1 = time.perf_counter()
-        with torch.profiler.record_function("ppo_update"):
+        with span("ppo_update"):
             metrics = self.update(tr, advantages, returns)
             _sync(self.device)
         metrics.update(ep)

@@ -1,8 +1,11 @@
 """Profiling hooks (counterpart of ``unitree_rl_gym_tpu/utils/profiling.py``).
 
-Two levels:
+Three levels:
   * always on: the runner's per-iteration wall clock and env-steps/s
     (``Perf/total_fps`` in TensorBoard, ``fps`` in ``curves.json``);
+  * spans: :func:`span` marks a layer of the program (the env step and its
+    parts, the policy, the PPO phases) as a ``torch.profiler`` range while a
+    profiler runs, and costs one flag check when none does;
   * on demand: :func:`trace`, a context manager over ``torch.profiler``
     (CPU activity, and CUDA activity where a card is present) that writes a
     Chrome trace under ``log_dir`` for TensorBoard or ``chrome://tracing``.
@@ -19,6 +22,20 @@ import os
 import time
 
 import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    runs (in the same trace as the device's kernels); otherwise one shared
+    no-op context. The flag is read at every call, so a profiler started
+    later sees the spans; a bare ``record_function`` costs several
+    microseconds even with no profiler running, the check under one
+    microsecond."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -37,26 +54,3 @@ def trace(log_dir: str):
             torch.cuda.synchronize()
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-class Stopwatch:
-    """Cheap section timer: sums wall time per named section."""
-
-    def __init__(self):
-        self.totals = {}
-        self.counts = {}
-
-    @contextlib.contextmanager
-    def section(self, name: str):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            dt = time.time() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> str:
-        return " | ".join(
-            f"{k}: {v:.3f}s/{self.counts[k]}" for k, v in self.totals.items()
-        )
